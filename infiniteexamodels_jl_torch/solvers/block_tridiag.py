@@ -1,0 +1,469 @@
+"""Structured condensed-KKT backends: block-tridiagonal / block-diagonal
+plus dense arrowhead.
+
+Transcribed problems have two dominant KKT structures (SURVEY.md §5, §7):
+time-stencil coupling -> block-banded; scenario coupling through first-stage
+variables -> block-diagonal + arrowhead border.  Both are instances of
+
+    K = [ T    B ]      T: nb blocks of size bs (tridiagonal or diagonal)
+        [ B^T  C ]      B: (nT, m) border, C: (m, m) dense corner
+
+The structure is recovered once at build time (numpy) and factorized with
+dense per-block operations on the card:
+
+- high-degree variables form the border (first-stage coupling),
+- the remaining T-subgraph is split into connected components: many small
+  components (scenarios) -> component-aligned blocks, batched inverse-SPD
+  per block; one big component (time) -> reverse-Cuthill-McKee or
+  support-interleaved band, **block cyclic reduction** (BCR: log-depth,
+  batched matmuls),
+- the border is eliminated with a dense Schur complement
+  S = C - B^T T^{-1} B, with Z = T^{-1} B precomputed at factor time.
+
+Every eliminated block goes through K1 (:func:`.chol_linv.chol_linv`, the
+hand-written Hopper kernel): Cholesky plus the explicit inverse factor, so
+the solve sweeps are batched matmuls.  Assembly is a deterministic gather +
+segment-sum of the per-family COO value stream into the blocks.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops.segsum import apply_plan, gather_plan
+from .chol_linv import chol_linv
+from .kkt import DenseKKT
+
+
+# ----------------------------------------------------------------------
+# batched SPD helpers / block cyclic reduction
+# ----------------------------------------------------------------------
+def _chol_linv(D):
+    """Batched Cholesky D = L L^T plus the explicit triangular inverse
+    L^{-1} (K1, every dtype).  Applying D^{-1} is then two batched matmuls:
+    D^{-1} b = L^{-T} (L^{-1} b)."""
+    return chol_linv(D.contiguous())
+
+
+def _lsolve(L, Linv, X):
+    """W = L^{-1} X for the Gram-form factor updates: the backward-stable
+    batched triangular solve."""
+    return torch.linalg.solve_triangular(L, X, upper=False)
+
+
+def _apply_inv(Linv, b):
+    """D^{-1} b = L^{-T} (L^{-1} b) from the stored triangular inverse."""
+    return torch.matmul(Linv.transpose(-1, -2), torch.matmul(Linv, b))
+
+
+def _bcr_factor(D, E):
+    """Block-cyclic-reduction factorization of the SPD block-tridiagonal
+    matrix with diagonal blocks ``D`` (nb, bs, bs) and sub-diagonal blocks
+    ``E`` (nb-1, bs, bs) where ``E[j]`` couples row block j+1 to column
+    block j.
+
+    Stability note: the Schur updates of the surviving even blocks are
+    computed in *Gram form* -- with W1 = L^{-1} E_odd^T and
+    W2 = L^{-1} E_even (batched triangular solves at factor time), the
+    updates are ``-W^T W``, which cannot push a block spuriously indefinite
+    the way explicit-inverse sandwiches ``E D^{-1} E^T`` can.  The solve
+    phase then uses the stored explicit triangular inverses so every sweep
+    is pure batched matmuls.
+
+    Returns ``(levels, root, ok)``: per-level tuples
+    ``(Linv, E_odd, E_even)`` plus the root block's ``Linv``.  Depth is
+    ceil(log2(nb)); every level is batched, and each level plus the root
+    is one K1 launch."""
+    levels = []
+    ok = torch.ones((), dtype=torch.bool, device=D.device)
+    while D.shape[0] > 1:
+        m = D.shape[0]
+        m_odd, m_even = m // 2, (m + 1) // 2
+        L, Linv, okl = _chol_linv(D[1::2])
+        ok = ok & okl
+        zpad = torch.zeros((1,) + D.shape[1:], dtype=D.dtype, device=D.device)
+        Epad = torch.cat([E, zpad])                 # length m
+        E_odd = Epad[1::2]                          # (m_odd,) E[2k+1]
+        E_even = Epad[0::2][:m_odd]                 # (m_odd,) E[2k]
+        levels.append((Linv, E_odd, E_even))
+        # Gram factors: W1 = L^{-1} E_odd^T, W2 = L^{-1} E_even
+        W1 = _lsolve(L, Linv, E_odd.transpose(-1, -2))
+        W2 = _lsolve(L, Linv, E_even)
+        D_new = D[0::2].clone()
+        # left term  E[2k-1] D^{-1} E[2k-1]^T = W1^T W1 -> index k (k>=1)
+        Lc = torch.matmul(W1.transpose(-1, -2), W1)
+        D_new[1:] -= Lc[:m_even - 1]
+        # right term E[2k]^T D^{-1} E[2k] = W2^T W2    -> index k (k<m_odd)
+        Rc = torch.matmul(W2.transpose(-1, -2), W2)
+        D_new[:m_odd] -= Rc
+        # new coupling E'_k = -E[2k+1] D^{-1} E[2k] = -W1^T W2
+        if m_even > 1:
+            E = -torch.matmul(W1.transpose(-1, -2), W2)[:m_even - 1]
+        else:
+            E = D.new_zeros((0,) + D.shape[1:])
+        D = D_new
+    _, root_linv, okr = _chol_linv(D)
+    return levels, root_linv, ok & okr
+
+
+def _bcr_solve(levels, root_linv, b):
+    """Solve T x = b given the BCR factorization; ``b`` is (nb, bs) or
+    (nb, bs, r).  Down-sweep + up-sweep, all batched matmuls."""
+    vec = b.ndim == 2
+    if vec:
+        b = b[..., None]
+    us = []
+    for Linv, E_odd, E_even in levels:
+        m = b.shape[0]
+        m_odd, m_even = m // 2, (m + 1) // 2
+        u = _apply_inv(Linv, b[1::2])
+        us.append(u)
+        b_new = b[0::2].clone()
+        lc = torch.matmul(E_odd, u)
+        b_new[1:] -= lc[:m_even - 1]
+        rc = torch.matmul(E_even.transpose(-1, -2), u)
+        b_new[:m_odd] -= rc
+        b = b_new
+    x = _apply_inv(root_linv, b)
+    for (Linv, E_odd, E_even), u in zip(reversed(levels), reversed(us)):
+        m_odd = u.shape[0]
+        m_even = x.shape[0]
+        xpad = torch.cat([x, x.new_zeros((1,) + x.shape[1:])])
+        t1 = torch.matmul(E_even, x[:m_odd])
+        t2 = torch.matmul(E_odd.transpose(-1, -2), xpad[1:1 + m_odd])
+        x_odd = u - _apply_inv(Linv, t1 + t2)
+        xn = x.new_empty((m_even + m_odd,) + x.shape[1:])
+        xn[0::2] = x
+        xn[1::2] = x_odd
+        x = xn
+    return x[..., 0] if vec else x
+
+
+def _round_up(x, m):
+    return ((x + m - 1) // m) * m
+
+
+class BlockTridiagKKT:
+    """Structured condensed-KKT backend.  Build-time analysis happens once;
+    per-iteration work is gather + segment-sum assembly + block
+    factorization."""
+
+    def __init__(self, model, max_block=512, min_blocks=4, max_border=4096):
+        self.model = model
+        self.device = model.device
+        n = model.nvar
+        rows = model.hess_rows_np
+        cols = model.hess_cols_np
+
+        import scipy.sparse as sp
+        from scipy.sparse.csgraph import (reverse_cuthill_mckee,
+                                          connected_components)
+
+        adj = sp.coo_matrix(
+            (np.ones(len(rows)), (rows, cols)), shape=(n, n)).tocsr()
+        adj.sum_duplicates()
+        deg = np.diff(adj.indptr)
+
+        # border = unusually high-degree variables (first-stage coupling)
+        med = max(int(np.median(deg)), 1)
+        thresh = max(8 * med, 32)
+        border_mask = deg > thresh
+        if border_mask.sum() > max_border:
+            order = np.argsort(deg)[::-1]
+            border_mask = np.zeros(n, bool)
+            border_mask[order[:max_border]] = True
+        t_mask = ~border_mask
+        t_ids = np.nonzero(t_mask)[0]
+        b_ids = np.nonzero(border_mask)[0]
+        nT, mB = len(t_ids), len(b_ids)
+        self.n, self.nT, self.mB = n, nT, mB
+        if nT == 0:
+            self.usable = False
+            return
+
+        sub = adj[t_ids][:, t_ids]
+        ncomp, labels = connected_components(sub, directed=False)
+        comp_sizes = np.bincount(labels) if ncomp else np.zeros(0, int)
+
+        # padded position of every T variable + block size
+        slot = np.full(n, -1, dtype=np.int64)
+        if ncomp >= min_blocks and comp_sizes.max() <= max_block:
+            # scenario mode: one block per component, padded to a common bs
+            bs = _round_up(int(comp_sizes.max()), 8)
+            nb = int(ncomp)
+            offsets = np.zeros(n, dtype=np.int64)
+            counter = np.zeros(ncomp, dtype=np.int64)
+            for k, v in zip(labels, t_ids):
+                offsets[v] = counter[k]
+                counter[k] += 1
+            slot[t_ids] = labels * bs + offsets[t_ids]
+            self.mode = "block_diag"
+        else:
+            # time mode: band ordering.  Two candidates, smaller bandwidth
+            # wins -- factor cost scales with bs^2 * nT:
+            # (a) reverse Cuthill-McKee on the T-subgraph (general), and
+            # (b) support-interleaved order (variables sorted by relative
+            #     position within their tensor, i.e. time-major across all
+            #     state/control/derivative tensors) -- on transcribed OCPs
+            #     this groups each support's variables together and often
+            #     beats the RCM heuristic by 2-3x.
+            tt = t_mask[rows] & t_mask[cols]
+
+            def band_of(order):
+                pos = np.full(n, -1, dtype=np.int64)
+                pos[order] = np.arange(len(order))
+                return pos, int(np.max(np.abs(pos[rows[tt]] - pos[cols[tt]]),
+                                       initial=0))
+
+            perm = reverse_cuthill_mckee(sub, symmetric_mode=True)
+            pos_rcm, bw_rcm = band_of(t_ids[perm])
+            pos_int = bw_int = None
+            variables = getattr(getattr(model, "core", None),
+                                "variables", None)
+            if variables:
+                frac = np.zeros(n)
+                vid = np.zeros(n, dtype=np.int64)
+                for v in variables:
+                    sl = slice(v.offset, v.offset + v.length)
+                    frac[sl] = np.arange(v.length) / max(v.length, 1)
+                    vid[sl] = v.vid
+                key = np.lexsort((vid[t_ids], frac[t_ids]))
+                pos_int, bw_int = band_of(t_ids[key])
+            # prefer RCM unless the interleave wins decisively: factor
+            # work scales with (bw+1)^2 so a 2/3 bandwidth cut is ~2x, but
+            # marginal wins are not worth trading away RCM's track record
+            # on numerically delicate (degenerate-endgame) problems
+            if bw_int is not None and bw_int < 0.66 * bw_rcm:
+                pos, bw = pos_int, bw_int
+            else:
+                pos, bw = pos_rcm, bw_rcm
+            bs = _round_up(max(bw, 1) + 1, 8)
+            nb = max((nT + bs - 1) // bs, 1)
+            slot[t_ids] = pos[t_ids]
+            self.mode = "band"
+
+        self.bs, self.nb = bs, nb
+        self.usable = bs <= max_block and nb >= min_blocks
+        if not self.usable:
+            return
+        nTpad = nb * bs
+        self.nTpad = nTpad
+
+        # -- entry classification (static) -------------------------------
+        rr, cc = rows, cols
+        tt = t_mask[rr] & t_mask[cc]
+        pr, pc = slot[rr], slot[cc]
+        blk_r = np.where(pr >= 0, pr // bs, -9)
+        blk_c = np.where(pc >= 0, pc // bs, -9)
+        off_r, off_c = pr % bs, pc % bs
+
+        selD = np.nonzero(tt & (blk_r == blk_c))[0]
+        selL = np.nonzero(tt & (blk_r == blk_c + 1))[0]
+        if tt.any():
+            cross = tt & (np.abs(blk_r - blk_c) > 1)
+            if cross.any():
+                # structure assumption violated; caller falls back
+                self.usable = False
+                return
+        selB = np.nonzero(t_mask[rr] & border_mask[cc])[0]
+        selC = np.nonzero(border_mask[rr] & border_mask[cc])[0]
+        self.block_diag = (self.mode == "block_diag") or len(selL) == 0
+
+        bpos = np.full(n, -1, dtype=np.int64)
+        bpos[b_ids] = np.arange(mB)
+
+        def as_t(a):
+            return torch.as_tensor(a, device=self.device)
+
+        # gather + segment-sum + unique-set plans: (take-table, unique
+        # sorted flat destination) per target block array
+        nnz_total = len(rows)
+
+        def plan(sel, dest):
+            tab, u = gather_plan(dest, sel, nnz_total)
+            return as_t(tab), as_t(u)
+
+        self.D_tab, self.D_u = plan(
+            selD, blk_r[selD] * bs * bs + off_r[selD] * bs + off_c[selD])
+        self.L_tab, self.L_u = plan(
+            selL, blk_c[selL] * bs * bs + off_r[selL] * bs + off_c[selL])
+        self.B_tab, self.B_u = plan(selB, pr[selB] * mB + bpos[cc[selB]])
+        self.C_tab, self.C_u = plan(
+            selC, bpos[rr[selC]] * mB + bpos[cc[selC]])
+
+        # scatter targets for diagonal additions + rhs permutation
+        self._slot_np = slot
+        self.b_ids = as_t(b_ids)
+        tslot = slot[t_ids]
+        # diagonal additions: sorted + unique flat destinations in D
+        dorder = np.argsort(tslot, kind="stable")
+        self.diag_take = as_t(t_ids[dorder])
+        self.diag_dest = as_t((tslot[dorder] // bs) * bs * bs
+                              + (tslot[dorder] % bs) * (bs + 1))
+        # rhs/solution permutations as pure GATHERS (no scatter at all):
+        # slot_src[s] = source variable of padded slot s (self-index for
+        # pads, masked to 0), out_perm[i] = position of variable i in
+        # concat([x_T.flat (nTpad), x_B (mB)])
+        occupied = np.zeros(nTpad, bool)
+        occupied[tslot] = True
+        slot_src = np.zeros(nTpad, np.int64)
+        slot_src[tslot] = t_ids
+        self.slot_src = as_t(slot_src)
+        self.slot_mask = torch.as_tensor(
+            occupied.reshape(nb, bs), dtype=model.dtype, device=self.device)
+        out_perm = np.zeros(n, np.int64)
+        out_perm[t_ids] = tslot
+        out_perm[b_ids] = nTpad + np.arange(mB)
+        self.out_perm = as_t(out_perm)
+        # unit diagonal on padding slots so Cholesky stays well-posed
+        pad = (~occupied).astype(np.float64).reshape(nb, bs)
+        self.pad_eye = torch.as_tensor(
+            np.einsum("bi,ij->bij", pad, np.eye(bs)), dtype=model.dtype,
+            device=self.device)
+
+    # ------------------------------------------------------------------
+    def assemble(self, x, theta, lam, sigma, d, diag_extra):
+        m = self.model
+        vals = m.kkt_vals(x, theta, lam, sigma, d)
+        dt = vals.dtype
+        nb, bs, mB = self.nb, self.bs, self.mB
+
+        def scat(tab, u, shape):
+            return apply_plan(vals, tab, u, int(np.prod(shape))).reshape(shape)
+
+        if nb > 1 and not self.block_diag:
+            L = scat(self.L_tab, self.L_u, (nb - 1, bs, bs))
+        else:
+            L = torch.zeros((max(nb - 1, 1), bs, bs), dtype=dt,
+                            device=vals.device)
+        Dflat = scat(self.D_tab, self.D_u, (nb * bs * bs,))
+        B = scat(self.B_tab, self.B_u, (self.nTpad, mB))
+        C = scat(self.C_tab, self.C_u, (mB, mB))
+        # unique destinations: a plain indexed add, deterministic
+        Dflat[self.diag_dest] += diag_extra[self.diag_take].to(dt)
+        D = Dflat.reshape(nb, bs, bs) + self.pad_eye.to(dt)
+        if mB:
+            C = C + torch.diag(diag_extra[self.b_ids].to(dt))
+        return (D, L, B.reshape(nb, bs, mB), C)
+
+    # ------------------------------------------------------------------
+    def matvec(self, K, v):
+        """K @ v from the block representation (used by the IPM's iterative
+        refinement of the condensed solve)."""
+        D, L, B, C = K
+        nb, bs, mB = self.nb, self.bs, self.mB
+        out_dt = v.dtype
+        dt = D.dtype
+        v = v.to(dt)
+        # padded-slot layout via pure gather + pad mask (no scatter)
+        vT = v[self.slot_src].reshape(nb, bs) * self.slot_mask.to(dt)
+        out_T = torch.matmul(D, vT[..., None])[..., 0]
+        if nb > 1 and not self.block_diag:
+            low = torch.matmul(L, vT[:-1, :, None])[..., 0]
+            up = torch.matmul(L.transpose(-1, -2), vT[1:, :, None])[..., 0]
+            out_T = out_T.clone()
+            out_T[1:] += low
+            out_T[:-1] += up
+        if mB:
+            vB = v[self.b_ids]
+            out_T = out_T + torch.einsum("bij,j->bi", B, vB)
+            out_B = torch.einsum("bij,bi->j", B, vT) + C @ vB
+        else:
+            out_B = torch.zeros(0, dtype=dt, device=v.device)
+        out = torch.cat([out_T.reshape(-1), out_B])[self.out_perm]
+        return out.to(out_dt)
+
+    # ------------------------------------------------------------------
+    def factor(self, K):
+        D, L, B, C = K
+        nb, bs, mB = self.nb, self.bs, self.mB
+
+        # Jacobi (symmetric diagonal) equilibration -- ALWAYS.  The
+        # condensed KKT carries ~1/delta_c (1e8+) diagonal entries from the
+        # lifted equalities; the explicit-inverse BCR (unlike backward-
+        # stable triangular solves) needs the per-block conditioning tamed
+        # or the IPM's Newton steps lose too many digits for the iterative
+        # refinement to recover.
+        dg = torch.abs(torch.diagonal(D, dim1=-2, dim2=-1))
+        sT = 1.0 / torch.sqrt(torch.clamp(dg, min=1e-30))      # (nb, bs)
+        D = D * sT[:, :, None] * sT[:, None, :]
+        if nb > 1 and not self.block_diag:
+            L = L * sT[1:, :, None] * sT[:-1, None, :]
+        if mB:
+            sB = 1.0 / torch.sqrt(torch.clamp(torch.abs(torch.diag(C)),
+                                              min=1e-30))
+            B = B * sT[:, :, None] * sB[None, None, :]
+            C = C * sB[:, None] * sB[None, :]
+        else:
+            sB = D.new_zeros(0)
+
+        if self.block_diag:
+            # batched per-block Cholesky + explicit triangular inverses
+            _, Linv, ok = _chol_linv(D)
+            tfac = (Linv,)
+            Z = _apply_inv(Linv, B) if mB else D.new_zeros((nb, bs, 0))
+        else:
+            levels, root_inv, ok = _bcr_factor(D, L[:nb - 1])
+            tfac = (levels, root_inv)
+            Z = _bcr_solve(levels, root_inv, B) if mB else \
+                D.new_zeros((nb, bs, 0))
+
+        if mB:
+            # S = C - B^T T^{-1} B; border solves reduce to matmuls with Z
+            S = C - torch.einsum("bij,bik->jk", B, Z)
+            Ls, info = torch.linalg.cholesky_ex(S)
+            Ls = torch.where(info != 0, torch.nan, Ls)
+            ok = ok & torch.isfinite(Ls).all()
+        else:
+            Ls = D.new_zeros((0, 0))
+        return (tfac, Z, Ls, sT, sB), ok
+
+    # ------------------------------------------------------------------
+    def _t_solve(self, tfac, r):
+        """Solve T u = r (r: (nb, bs) or (nb, bs, k)) -- batched matmuls."""
+        vec = r.ndim == 2
+        if self.block_diag:
+            (Linv,) = tfac
+            out = _apply_inv(Linv, r[..., None] if vec else r)
+            return out[..., 0] if vec else out
+        levels, root_linv = tfac
+        return _bcr_solve(levels, root_linv, r)
+
+    def solve(self, fac, rhs):
+        tfac, Z, Ls, sT, sB = fac
+        nb, bs, mB = self.nb, self.bs, self.mB
+        rT = rhs[self.slot_src].reshape(nb, bs) * self.slot_mask.to(rhs.dtype)
+        rT = rT * sT
+        u = self._t_solve(tfac, rT)                   # (nb, bs)
+        if mB:
+            rB = rhs[self.b_ids] * sB
+            # x_B = S^{-1} (r_B - Z^T r_T);  x_T = u - Z x_B
+            rhs2 = rB - torch.einsum("bij,bi->j", Z, rT)
+            z2 = torch.linalg.solve_triangular(Ls, rhs2[:, None], upper=False)
+            x2 = torch.linalg.solve_triangular(Ls.T, z2, upper=True)[:, 0]
+            x1 = u - torch.einsum("bij,j->bi", Z, x2)
+            x2 = x2 * sB
+        else:
+            x1 = u
+            x2 = rhs.new_zeros(0)
+        x1 = x1 * sT
+        return torch.cat([x1.reshape(-1), x2])[self.out_perm]
+
+
+def make_structured_kkt(model, fallback=True, **kwargs):
+    """Detect block structure; fall back to the dense backend when the
+    problem is too small or has no usable block layout.  Only the numpy
+    structure analysis is guarded: assembly, factoring and the kernel are
+    never reached here, and their failures propagate to the caller."""
+    try:
+        kkt = BlockTridiagKKT(model, **kwargs)
+    except Exception:
+        if not fallback:
+            raise
+        kkt = None
+    if kkt is not None and kkt.usable:
+        return kkt
+    if fallback:
+        return DenseKKT(model)
+    raise NotImplementedError(
+        "no usable block structure and fallback disabled")
