@@ -10,15 +10,23 @@ Phases (any failure raises and the script exits non-zero):
 2. build every kernel of the port from ``infiniteexamodels_jl_torch/csrc``
    (one nvcc per source, all started together);
 3. K1 (``chol_linv``): the kernel against its plain PyTorch version at the
-   quad-1000 band shapes and beside them, both dtypes, the device-memory
-   path (n > 120 in f64) and a block that is not SPD; per shape the
-   kernel's, the plain version's and the library yardstick's times and the
-   bound;
+   quad-1000 band shapes and at n = 8 ... 512 across both paths of its
+   launch plan (CTA, with 8 down to 1 warps a block, and cluster), both
+   dtypes; per shape the plan, the kernel's, the plain version's and the
+   library yardstick's times and the bound.  Blocks that are not SPD (-I,
+   and a pivot failing inside a diagonal tile) on every path; backward
+   errors at cond 1e8 within 10x of the plain version's; two launches
+   bit-identical;
 4. the main path: quad-1000 through ``ExaTranscriptionBackend(IpmSolver,
    linear_solver="auto", tol=1e-6)`` on the card -- band KKT with 688
    blocks of 64, K1 launched, ``first_order`` at the CPU record's
-   objective;
-5. determinism: quad-200 solved twice gives bit-identical iterates.
+   objective.  The warm re-solve records the blocks of its last band
+   factorization (11 K1 calls, a late iteration) through a hook around
+   ``block_tridiag._chol_linv``;
+5. determinism: quad-200 solved twice gives bit-identical iterates;
+6. K1 on the recorded quad-1000 blocks: backward errors within 10x of the
+   plain version's, and the kernel, plain and library times per
+   factorization for the kernels line.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  The script exits non-zero and prints no
@@ -27,6 +35,7 @@ result when CUDA is absent.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -63,6 +72,24 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def k1_times(D, chol_linv, chol_linv_reference, reps):
+    """Kernel, plain version and library call on the same blocks.  Device
+    ms: ``reps`` calls in one CUDA graph (the kernel launched through its
+    C entry point, without the wrapper).  Event ms: the calls issued one by
+    one (the kernel through its wrapper), host included -- on short calls
+    that measures the host's cost of issuing them."""
+    from infiniteexamodels_jl_torch.tools.k1_sweep import graph_ms, launcher
+    raw, _, _ = launcher(D)
+    fns = {"kernel": (raw, lambda: chol_linv(D)),
+           "plain": (lambda: chol_linv_reference(D),) * 2,
+           "library": (lambda: library(D),) * 2}
+    out = {}
+    for name, (dev_fn, event_fn) in fns.items():
+        out[name + "_device_ms"] = graph_ms(dev_fn, reps)
+        out[name + "_event_ms"] = cuda_ms(event_fn, reps)
+    return out
+
+
 def spd_batch(nb, n, dtype, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
     A = torch.randn(nb, n, n, generator=g, device="cuda", dtype=dtype)
@@ -88,12 +115,56 @@ def library(D):
     return torch.linalg.solve_triangular(L, eye.expand_as(D), upper=False)
 
 
-def k1_phase(chol_linv, chol_linv_reference):
+K1_SIZES = (8, 16, 24, 32, 40, 64, 120, 128, 144, 168, 176, 512)
+
+
+def ill_conditioned_batch(nb, n, cond, seed):
+    """SPD blocks with eigenvalues spread log-uniformly over [1/cond, 1]."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    A = torch.randn(nb, n, n, generator=g, device="cuda",
+                    dtype=torch.float64)
+    Q, _ = torch.linalg.qr(A)
+    lam = torch.logspace(0.0, -math.log10(cond), n, device="cuda",
+                         dtype=torch.float64)
+    D = (Q * lam) @ Q.transpose(1, 2)
+    return (0.5 * (D + D.transpose(1, 2))).contiguous()
+
+
+def backward_errors(D, L, Linv):
+    """||L L^T - D|| / ||D|| and ||L^{-1} L - I|| (Frobenius, worst
+    block)."""
+    eye = torch.eye(D.shape[-1], dtype=D.dtype, device=D.device)
+    fact = torch.linalg.matrix_norm(L @ L.transpose(1, 2) - D)
+    fact = float((fact / torch.linalg.matrix_norm(D)).max())
+    return fact, float(torch.linalg.matrix_norm(Linv @ L - eye).max())
+
+
+def check_backward(tag, D, chol_linv, chol_linv_reference):
+    """The kernel's backward errors within 10x of the plain version's."""
+    L, Linv, ok = chol_linv(D)
+    Lr, Linvr, okr = chol_linv_reference(D)
+    torch.cuda.synchronize()
+    assert bool(ok) and bool(okr), tag
+    fact, inv = backward_errors(D, L, Linv)
+    fact_r, inv_r = backward_errors(D, Lr, Linvr)
+    rec = {"k1_backward": tag, "shape": list(D.shape), "fact": fact,
+           "fact_plain": fact_r, "inv": inv, "inv_plain": inv_r}
+    print(json.dumps(rec))
+    assert fact <= 10 * fact_r and inv <= 10 * inv_r, rec
+    err = max(float((L - Lr).abs().max()), float((Linv - Linvr).abs().max()))
+    scale = max(float(Lr.abs().max()), float(Linvr.abs().max()))
+    return err, err / scale
+
+
+def k1_phase(chol_linv, chol_linv_reference, launch_plan):
     cases = [(nb, 64, torch.float64) for nb in (344, 172, 43, 1)]
-    cases += [(344, 64, torch.float32), (16, 8, torch.float64),
-              (16, 24, torch.float64), (8, 120, torch.float64),
-              (8, 128, torch.float64), (8, 128, torch.float32),
-              (2, 512, torch.float64), (2, 512, torch.float32)]
+    cases += [(344, 64, torch.float32)]
+    for n in K1_SIZES:
+        nb = 16 if n <= 32 else (8 if n <= 176 else 2)
+        cases += [(nb, n, torch.float64), (nb, n, torch.float32)]
+    # many small blocks: CTAs of one warp (n = 8) and of four (n = 32, f64)
+    cases += [(2048, n, dt) for n in (8, 32)
+              for dt in (torch.float64, torch.float32)]
     worst = 0.0
     for i, (nb, n, dt) in enumerate(cases):
         D = spd_batch(nb, n, dt, seed=100 + i)
@@ -106,51 +177,81 @@ def k1_phase(chol_linv, chol_linv_reference):
         scale = max(float(Lr.abs().max()), float(Linvr.abs().max()))
         assert err <= RTOL[dt] * scale, (nb, n, dt, err, scale)
         worst = max(worst, err / scale)
-        reps = 20 if n <= 128 else 3
-        kernel_ms = cuda_ms(lambda: chol_linv(D), reps)
-        plain_ms = cuda_ms(lambda: chol_linv_reference(D), reps)
-        library_ms = cuda_ms(lambda: library(D), reps)
+        reps = 20 if n <= 176 else 3
+        times = k1_times(D, chol_linv, chol_linv_reference, reps)
         bound_ms, bound_by = k1_bound_ms(nb, n, dt)
+        plan = launch_plan(n, dt, nb)
         print(json.dumps({"k1_shape": [nb, n, n], "dtype": str(dt),
+                          "path": plan.path, "threads": plan.threads,
                           "max_abs_err": err, "rel_err": err / scale,
-                          "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-                          "library_ms": library_ms, "bound_ms": bound_ms,
+                          **times, "bound_ms": bound_ms,
                           "bound_by": bound_by}))
-    # a block that is not SPD: ok=False and NaN in that block, in both
-    D = spd_batch(6, 64, torch.float64, seed=7)
-    D[3] = -torch.eye(64, dtype=torch.float64, device="cuda")
-    L, Linv, ok = chol_linv(D)
-    Lr, Linvr, okr = chol_linv_reference(D)
-    torch.cuda.synchronize()
-    assert not bool(ok) and not bool(okr)
-    assert bool(torch.isnan(L[3]).all()) and bool(torch.isnan(Linv[3]).all())
-    keep = [0, 1, 2, 4, 5]
-    assert float((L[keep] - Lr[keep]).abs().max()) <= 1e-10 * float(
-        Lr[keep].abs().max())
-    print(json.dumps({"k1_not_spd": "ok=False, NaN block, others agree"}))
+    # blocks that are not SPD, on every path: block 1 is -I, block 2 has
+    # its pivot n/2 + 3 at -1 (inside a diagonal tile; past the first panel
+    # from n = 16 on); both come back NaN, ok is False, the other blocks
+    # agree with the plain version
+    not_spd = ((4, 8), (4, 16), (2048, 16), (4, 64), (4, 144), (4, 512))
+    for nb, n in not_spd:
+        for dt in (torch.float64, torch.float32):
+            D = spd_batch(nb, n, dt, seed=7 + n)
+            D[1] = -torch.eye(n, dtype=dt, device="cuda")
+            p = n // 2 + 3
+            Lf = torch.linalg.cholesky(D[2])
+            D[2, p, p] -= Lf[p, p] ** 2 + 1.0
+            L, Linv, ok = chol_linv(D)
+            Lr, Linvr, okr = chol_linv_reference(D)
+            torch.cuda.synchronize()
+            assert not bool(ok) and not bool(okr), (n, dt)
+            for b in (1, 2):
+                assert bool(torch.isnan(L[b]).all()), (n, dt, b)
+                assert bool(torch.isnan(Linv[b]).all()), (n, dt, b)
+            keep = [0] + list(range(3, nb))
+            err = float((Linv[keep] - Linvr[keep]).abs().max())
+            assert err <= RTOL[dt] * float(Linvr[keep].abs().max()), (
+                n, dt, err)
+    print(json.dumps({"k1_not_spd": "ok=False, NaN blocks (-I and a pivot "
+                      "inside a diagonal tile), others agree",
+                      "batches": not_spd}))
+    # backward error at cond 1e8 (the condensed KKT's scale), every path
+    for n in (24, 64, 128, 512):
+        check_backward(f"cond1e8_n{n}", ill_conditioned_batch(
+            4, n, 1e8, seed=500 + n), chol_linv, chol_linv_reference)
+    # two launches give bit-identical outputs
+    for n in (16, 64, 144, 512):
+        D = spd_batch(4, n, torch.float64, seed=600 + n)
+        a, b = chol_linv(D), chol_linv(D)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), n
+    print(json.dumps({"k1_bit_identical": [16, 64, 144, 512]}))
     return worst
 
 
-def k1_main_path_record(chol_linv, chol_linv_reference, launches):
+def k1_main_path_record(blocks, chol_linv, chol_linv_reference, launches):
     """The kernel line of the final JSON: times summed over the 11
-    launches of one quad-1000 band factorization."""
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
-    err = 0.0
-    for i, nb in enumerate(QUAD1000_LEVELS):
-        D = spd_batch(nb, 64, torch.float64, seed=300 + i)
-        L, Linv, _ = chol_linv(D)
-        Lr, Linvr, _ = chol_linv_reference(D)
-        err = max(err, float((L - Lr).abs().max()),
-                  float((Linv - Linvr).abs().max()))
-        tot["ms"] += cuda_ms(lambda: chol_linv(D), 20)
-        tot["plain_ms"] += cuda_ms(lambda: chol_linv_reference(D), 20)
-        tot["library_ms"] += cuda_ms(lambda: library(D), 20)
-        tot["bound_ms"] += k1_bound_ms(nb, 64, torch.float64)[0]
+    launches of one quad-1000 band factorization, on the real blocks that
+    a late iteration of the solve factored."""
+    tot = {}
+    err = rel = bound_total = 0.0
+    for i, D in enumerate(blocks):
+        e, r = check_backward(f"quad1000_level{i}", D, chol_linv,
+                              chol_linv_reference)
+        err, rel = max(err, e), max(rel, r)
+        for k, v in k1_times(D, chol_linv, chol_linv_reference, 20).items():
+            tot[k] = tot.get(k, 0.0) + v
+        bound_ms, bound_by = k1_bound_ms(D.shape[0], D.shape[-1], D.dtype)
+        bound_total += bound_ms
+        assert bound_by == "bytes", (D.shape, bound_by)
+    # ms, plain_ms and library_ms are device times (CUDA graphs); the
+    # CUDA-event times of the calls issued one by one, host included, are
+    # kept beside them
+    names = ("kernel", "plain", "library")
     return {"name": "chol_linv", "route": "cuda",
             "source": "infiniteexamodels_jl_torch/csrc/chol_linv.cu",
             "replaces": "infiniteexamodels_jl_tpu/solvers/pallas_chol.py:90",
-            "launches": launches, "max_abs_err": err, **tot,
-            "bound_by": "bytes"}
+            "launches": launches, "max_abs_err": err, "max_rel_err": rel,
+            "ms": tot["kernel_device_ms"], "plain_ms": tot["plain_device_ms"],
+            "bound_ms": bound_total, "bound_by": "bytes",
+            "library_ms": tot["library_device_ms"],
+            "event_ms": {k: tot[k + "_event_ms"] for k in names}}
 
 
 def main():
@@ -160,11 +261,11 @@ def main():
         return 1
     from infiniteexamodels_jl_torch.backend import ExaTranscriptionBackend
     from infiniteexamodels_jl_torch.models import quad
-    from infiniteexamodels_jl_torch.solvers import IpmSolver
+    from infiniteexamodels_jl_torch.solvers import IpmSolver, block_tridiag
     from infiniteexamodels_jl_torch.solvers.block_tridiag import (
         BlockTridiagKKT)
     from infiniteexamodels_jl_torch.solvers.chol_linv import (
-        chol_linv, chol_linv_reference)
+        chol_linv, chol_linv_reference, launch_plan)
     from infiniteexamodels_jl_torch.utils.cuda_build import build_all
 
     t_start = time.time()
@@ -186,7 +287,7 @@ def main():
     print(json.dumps({"build_s": time.time() - t0}))
 
     # 3. K1 against its plain version
-    worst = k1_phase(chol_linv, chol_linv_reference)
+    worst = k1_phase(chol_linv, chol_linv_reference, launch_plan)
     print(json.dumps({"k1_worst_rel_err": worst}))
 
     # 4. the main path: quad-1000 on the card
@@ -213,10 +314,26 @@ def main():
     rel = abs(res.objective - QUAD1000_OBJECTIVE) / QUAD1000_OBJECTIVE
     assert rel <= 1e-6, (res.objective, rel)
     first_iters = res.iter
-    t0 = time.time()
-    res2 = backend.optimize(m)          # re-solve with the built solver
-    torch.cuda.synchronize()
-    warm_s = time.time() - t0
+    # the re-solve also records the blocks of every K1 call: the last 11
+    # are the last band factorization of the solve (a late iteration)
+    seen = []
+    k1 = block_tridiag._chol_linv
+
+    def recording(D):
+        seen.append(D.detach().clone(memory_format=torch.contiguous_format))
+        del seen[:-len(QUAD1000_LEVELS)]
+        return k1(D)
+
+    block_tridiag._chol_linv = recording
+    try:
+        t0 = time.time()
+        res2 = backend.optimize(m)      # re-solve with the built solver
+        torch.cuda.synchronize()
+        warm_s = time.time() - t0
+    finally:
+        block_tridiag._chol_linv = k1
+    assert tuple(D.shape[0] for D in seen) == QUAD1000_LEVELS, [
+        D.shape for D in seen]
     assert res2.status == "first_order" and res2.iter == first_iters
     print(json.dumps({
         "main_path": "quad-1000", "nvar": backend.model.nvar,
@@ -257,7 +374,9 @@ def main():
     print(json.dumps({"determinism": "quad-200", "iterates": len(traces[0]),
                       "bit_identical": same}))
 
-    record = k1_main_path_record(chol_linv, chol_linv_reference, launches)
+    # 6. K1 on the recorded quad-1000 blocks; the kernels line
+    record = k1_main_path_record(seen, chol_linv, chol_linv_reference,
+                                 launches)
     print(json.dumps({"elapsed_s": time.time() - t_start}))
     print(json.dumps({"kernels": [record]}))
     print(json.dumps({"ok": True, "device": {

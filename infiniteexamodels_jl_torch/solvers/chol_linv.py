@@ -7,7 +7,9 @@ runs :func:`chol_linv_reference` only for a CPU tensor.  The kernel replaces
 the reference package's TPU Pallas kernels ``_chol_inv_kernel``
 (solvers/pallas_chol.py:38) and ``_chol_inv_kernel2`` (:90); the note at the
 top of the CUDA source says what bounds it on the card and how its design
-answers that.
+answers that.  :func:`launch_plan` chooses the kernel's path and launch
+configuration from the batch, ``n`` and the dtype; the kernel takes it as
+given.
 
 Contract (both versions): ``D`` is ``(nb, n, n)``, float64 or float32,
 contiguous, ``n`` a multiple of 8 up to :data:`MAX_N`.  Returns
@@ -18,6 +20,7 @@ block factored and every entry of ``Linv`` is finite.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -26,8 +29,65 @@ from ..utils import cuda_build
 MAX_N = 512          # the band backend's max_block
 _SYMBOLS = {torch.float64: "ixm_chol_linv_f64",
             torch.float32: "ixm_chol_linv_f32"}
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+SMEM_LIMIT = 232448       # bytes of shared memory one CTA may use on sm_90
+SMEM_PER_SM = 233472      # ... and one SM holds (228 KB)
+STATIC_SMEM = 1024        # kept back per CTA: static flags, the system's 1 KB
+MAX_THREADS = 256         # the kernels' __launch_bounds__(256, 3) ...
+RESIDENT_WARPS = 24       # ... caps registers at 3 x 8 warps per SM
+H100_SMS = 132
+CTA_THREADS = (256, 128, 64, 32)   # path "cta", most warps per block first
+CLUSTER_CTAS = 8          # CTAs that share one block on path "cluster"
+CLUSTER_CTAS_LARGE = 16   # ... above n = 256 (a non-portable cluster size)
+_PATH_IDS = {"cta": 1, "cluster": 2}
+
+
+class LaunchPlan(NamedTuple):
+    """How K1 is launched for one batch of blocks.
+
+    ``path``: ``"cta"`` (one CTA of ``threads`` per block, L and L^{-1} in
+    shared memory) or ``"cluster"`` (a cluster of ``ctas`` CTAs per block,
+    working in the output buffers).  ``smem_bytes`` is the dynamic shared
+    memory of one CTA and ``ld`` the leading dimension of the shared-memory
+    copies (rows padded by 4 elements, against bank conflicts, where that
+    still fits)."""
+    path: str
+    ctas: int
+    threads: int
+    smem_bytes: int
+    ld: int
+
+
+def launch_plan(n, dtype, nb=1, sms=H100_SMS):
+    """The kernel's path and launch configuration for ``nb`` blocks of size
+    ``n`` on a card of ``sms`` SMs: ``"cta"`` while a block and its inverse
+    fit in shared memory (f64 n <= 120, f32 n <= 168), ``"cluster"`` above.
+
+    On path "cta" a block gets the most warps (of 8, 4, 2, 1) with which
+    the whole batch is resident in one wave.  Where no count manages that,
+    it gets the count that needs the fewest waves, the more warps on a tie,
+    and from n = 32 on at least 4 warps: there a block's own chain grows
+    enough that more warps shorten it more than the extra waves cost
+    (k1_sweep times these choices against the other counts)."""
+    esize = torch.finfo(dtype).bits // 8
+    fits = [ld for ld in (n + 4, n)
+            if 2 * n * ld * esize <= SMEM_LIMIT - STATIC_SMEM]
+    if not fits:
+        ctas = CLUSTER_CTAS if n <= 256 else CLUSTER_CTAS_LARGE
+        return LaunchPlan("cluster", ctas, MAX_THREADS, 0, n)
+    ld = fits[0]
+    smem = 2 * n * ld * esize
+
+    def waves(threads):
+        per_sm = min(32, RESIDENT_WARPS // (threads // 32),
+                     SMEM_PER_SM // (smem + STATIC_SMEM))
+        return -(-nb // (sms * per_sm))
+
+    threads = next((t for t in CTA_THREADS if waves(t) == 1), None)
+    if threads is None:
+        threads = min(CTA_THREADS[:2] if n >= 32 else CTA_THREADS, key=waves)
+    return LaunchPlan("cta", 1, threads, smem, ld)
 
 
 def _check(D):
@@ -79,15 +139,18 @@ def chol_linv(D):
     if nb == 0:
         return L, Linv, torch.ones((), dtype=torch.bool, device=D.device)
     fn = _kernel(D.dtype)
+    sms = torch.cuda.get_device_properties(D.device).multi_processor_count
+    plan = launch_plan(n, D.dtype, nb, sms)
     stream = torch.cuda.current_stream(D.device).cuda_stream
     with torch.cuda.device(D.device):
         err = fn(D.data_ptr(), L.data_ptr(), Linv.data_ptr(),
-                 okb.data_ptr(), nb, n, stream)
+                 okb.data_ptr(), nb, n, _PATH_IDS[plan.path], plan.ctas,
+                 plan.threads, plan.smem_bytes, plan.ld, stream)
     if err != 0:
         raise RuntimeError(f"chol_linv kernel launch failed: CUDA error "
                            f"{err}")
     chol_linv.launches += 1
-    return L, Linv, torch.all(okb != 0)
+    return L, Linv, torch.all(okb)
 
 
 chol_linv.launches = 0

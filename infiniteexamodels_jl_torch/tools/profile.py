@@ -10,8 +10,9 @@ Prints one JSON object per line:
 - ``solve``: a warm re-solve's wall time, iterations and per-iteration time;
 - ``profiler``: ``torch.profiler`` over one more warm re-solve -- the summed
   device time of all kernels against the wall time (the device's busy
-  share), the number of kernel launches, K1's device time, and the top
-  kernels by device time;
+  share), the number of kernel launches, K1's device time (every kernel
+  whose name contains ``chol_linv``: ``chol_linv_smem_kernel`` and
+  ``chol_linv_cluster_kernel``), and the top kernels by device time;
 - ``trajectory``: the same solve through the port on the host CPU, and on
   the card with K1 swapped for its plain version (``chol_linv_reference``,
   i.e. cuSOLVER/cuBLAS) for this one comparison; for each, the iteration
@@ -60,7 +61,9 @@ def _solve(size, device):
     return m, b, res
 
 
-def _device_us(evt):
+def device_us(evt):
+    """An event's own device microseconds (the attribute's name differs
+    between torch versions)."""
     for name in ("self_device_time_total", "self_cuda_time_total"):
         v = getattr(evt, name, None)
         if v is not None:
@@ -104,18 +107,18 @@ def main(argv=None):
         b.optimize(m)
         torch.cuda.synchronize()
     wall_prof = time.perf_counter() - t0
-    events = [e for e in prof.key_averages() if _device_us(e) > 0]
-    dev_us = sum(_device_us(e) for e in events)
+    events = [e for e in prof.key_averages() if device_us(e) > 0]
+    dev_us = sum(device_us(e) for e in events)
     launches = sum(e.count for e in events)
-    k1_us = sum(_device_us(e) for e in events if "chol_linv" in e.key)
-    top = sorted(events, key=_device_us, reverse=True)[:args.top]
+    k1_us = sum(device_us(e) for e in events if "chol_linv" in e.key)
+    top = sorted(events, key=device_us, reverse=True)[:args.top]
     print(json.dumps({"profiler": {
         "wall_s": wall_prof, "device_busy_s": dev_us / 1e6,
         "device_busy_share": dev_us / 1e6 / wall_prof,
         "device_ops_with_time": launches,
         "k1_device_s": k1_us / 1e6,
         "top": [{"name": e.key[:80], "count": e.count,
-                 "device_ms": _device_us(e) / 1e3} for e in top]}}))
+                 "device_ms": device_us(e) / 1e3} for e in top]}}))
 
     def against_card(e0, res):
         rel = [abs(a - c) / max(abs(c), 1e-300) for a, c in zip(e0_card, e0)]

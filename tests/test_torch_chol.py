@@ -11,7 +11,8 @@ from infiniteexamodels_jl_tpu.solvers.block_tridiag import (
     _chol_linv as jax_chol_linv)
 from infiniteexamodels_jl_tpu.solvers.pallas_chol import chol_linv_pallas
 from infiniteexamodels_jl_torch.solvers.chol_linv import (
-    chol_linv, chol_linv_reference)
+    CTA_THREADS, MAX_THREADS, SMEM_LIMIT, STATIC_SMEM, chol_linv,
+    chol_linv_reference, launch_plan)
 
 
 def _spd_batch(nb, n, seed=0, dtype=np.float64):
@@ -92,3 +93,52 @@ def test_wrapper_rejects(bad, err):
     with pytest.raises(err):
         chol_linv(bad())
 
+
+
+
+# the documented boundaries: CTA while a block and its inverse fit in
+# shared memory, cluster above
+_CTA_MAX_N = {torch.float64: 120, torch.float32: 168}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", range(8, 513, 8))
+def test_launch_plan_fits_the_card(n, dtype):
+    """The kernel's launch configuration for every block size and batches
+    from one block to many waves: within 227 KB of shared memory (a launch
+    that asks for more is refused and never runs) and 1,024 threads, on
+    the documented path."""
+    esize = torch.finfo(dtype).bits // 8
+    for nb in (1, 16, 344, 2048, 100000):
+        plan = launch_plan(n, dtype, nb)
+        assert 32 <= plan.threads <= min(1024, MAX_THREADS)
+        assert plan.threads in CTA_THREADS
+        assert plan.smem_bytes + STATIC_SMEM <= SMEM_LIMIT == 232448
+        assert plan.ld >= n
+        assert plan.path == ("cta" if n <= _CTA_MAX_N[dtype] else "cluster")
+        if plan.path == "cluster":
+            assert plan.smem_bytes == 0 and plan.ld == n
+            assert plan.ctas in (8, 16) and plan.threads == MAX_THREADS
+        else:
+            assert plan.ctas == 1
+            assert plan.smem_bytes >= 2 * n * plan.ld * esize
+
+
+@pytest.mark.parametrize("n,dtype,nb,threads", [
+    (64, torch.float64, 344, 256),    # quad-1000's first BCR level
+    (64, torch.float64, 1, 256),
+    (8, torch.float64, 16, 256),      # one wave: 8 warps a block
+    (8, torch.float64, 2048, 32),     # one wave only with 1 warp a block
+    (24, torch.float32, 2048, 32),
+    (32, torch.float32, 2048, 32),
+    (32, torch.float64, 2048, 128),   # several waves whatever the count
+    (64, torch.float32, 2048, 128),
+    (64, torch.float64, 2048, 256),
+    (8, torch.float64, 100000, 32),
+])
+def test_launch_plan_warps_follow_the_batch(n, dtype, nb, threads):
+    """Path "cta" gives a block the most warps with which the batch runs in
+    one wave on the H100's 132 SMs, else the fewest waves (at least 4
+    warps from n = 32 on): the choices k1_sweep timed best."""
+    plan = launch_plan(n, dtype, nb)
+    assert plan.path == "cta" and plan.threads == threads
