@@ -19,14 +19,30 @@ Phases (any failure raises and the script exits non-zero):
    bit-identical;
 4. the main path: quad-1000 through ``ExaTranscriptionBackend(IpmSolver,
    linear_solver="auto", tol=1e-6)`` on the card -- band KKT with 688
-   blocks of 64, K1 launched, ``first_order`` at the CPU record's
-   objective.  The warm re-solve records the blocks of its last band
+   blocks of 64, K1 launched 11 times per band factorization (counted),
+   ``first_order`` at the CPU record's objective.  The warm re-solve records the blocks of its last band
    factorization (11 K1 calls, a late iteration) through a hook around
    ``block_tridiag._chol_linv``;
 5. determinism: quad-200 solved twice gives bit-identical iterates;
 6. K1 on the recorded quad-1000 blocks: backward errors within 10x of the
    plain version's, and the kernel, plain and library times per
-   factorization for the kernels line.
+   factorization for the kernels line;
+7. scenario mode at the reference sweep's smallest and largest sizes: the
+   two-stage stochastic AC-OPF (pglib case3_lmbd) with 1,000 and 16,000
+   scenarios through the same backend -- ``BlockTridiagKKT`` in
+   ``block_diag`` mode with S + 1 blocks of 24 and a border of 6, K1
+   launched once per factorization (launches and factorizations counted),
+   ``first_order`` at the JAX CPU record's objective; build, first-solve
+   and warm re-solve times, K1 launches, peak device memory above what was
+   allocated before the case (after a ``gc.collect()``), and the
+   segment-sum plans' tables and entries.
+   The opf-16000 re-solve records the blocks of its last factorization;
+8. K1 on the recorded (16001, 24, 24) blocks: backward errors within 10x
+   of the plain version's, kernel, plain and library device times;
+9. farmer-1000 (the reference's default size) in ``block_diag`` mode with
+   the 3 first-stage variables as border, ``first_order`` at the JAX CPU
+   record;
+10. determinism: opf-1000 solved twice gives bit-identical iterates.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  The script exits non-zero and prints no
@@ -34,6 +50,7 @@ result when CUDA is absent.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -44,6 +61,10 @@ import torch
 
 QUAD1000_OBJECTIVE = 568.839978   # reference CPU path, tol 1e-6 (BENCH_r05.json)
 QUAD1000_LEVELS = (344, 172, 86, 43, 21, 11, 5, 3, 1, 1, 1)
+# the JAX package on the host CPU, linear_solver="auto", tol=1e-6:
+# scenarios -> (objective, iterations)
+OPF_RECORDS = {1000: (5744.482317439771, 23), 16000: (5744.4823205514795, 18)}
+FARMER1000 = (-90957.71953975875, 38)
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM
 PEAK_FLOPS = {torch.float64: 67e12, torch.float32: 67e12}
 RTOL = {torch.float64: 1e-10, torch.float32: 1e-4}
@@ -254,6 +275,199 @@ def k1_main_path_record(blocks, chol_linv, chol_linv_reference, launches):
             "event_ms": {k: tot[k + "_event_ms"] for k in names}}
 
 
+def solve_recorded(backend, m, chol_linv, seen=None, keep=1):
+    """One solve on the card, with K1's launches (its count set to 0 just
+    before) and the band/scenario KKT's factorizations (a hook around
+    ``BlockTridiagKKT.factor``) counted; with ``seen``, the blocks of the
+    last ``keep`` K1 calls are kept through a hook around
+    ``block_tridiag._chol_linv``.  Returns (result, seconds, launches,
+    factorizations)."""
+    from infiniteexamodels_jl_torch.solvers import block_tridiag
+    k1 = block_tridiag._chol_linv
+    factor = block_tridiag.BlockTridiagKKT.factor
+    factorizations = [0]
+
+    def recording(D):
+        seen.append(D.detach().clone(memory_format=torch.contiguous_format))
+        del seen[:-keep]
+        return k1(D)
+
+    def counted(self, K):
+        factorizations[0] += 1
+        return factor(self, K)
+
+    if seen is not None:
+        block_tridiag._chol_linv = recording
+    block_tridiag.BlockTridiagKKT.factor = counted
+    try:
+        chol_linv.launches = 0
+        t0 = time.time()
+        res = backend.optimize(m)
+        torch.cuda.synchronize()
+        return res, time.time() - t0, chol_linv.launches, factorizations[0]
+    finally:
+        block_tridiag._chol_linv = k1
+        block_tridiag.BlockTridiagKKT.factor = factor
+
+
+def segsum_plans(model, kkt):
+    """Every segment-sum plan of the model and its KKT, by name."""
+    return {"grad": model._grad_plan, "hvp": model._hvp_plan,
+            "jprod": model._jprod_plan, "jtprod": model._jtprod_plan,
+            "D": kkt.D_plan, "L": kkt.L_plan, "B": kkt.B_plan,
+            "C": kkt.C_plan}
+
+
+def segsum_record(model, kkt):
+    """The plans' take-tables (one gather and one row reduction each per
+    call) and their total entries."""
+    plans = segsum_plans(model, kkt)
+    return {"segsum_tables": {k: len(p.tabs) for k, p in plans.items()},
+            "segsum_table_entries": sum(p.entries for p in plans.values())}
+
+
+def scenario_solve(tag, m, record, bs, mB, chol_linv, seen=None):
+    """``m`` through the scenario KKT on the card: first solve with K1's
+    count read around it, then a warm re-solve (recording blocks when
+    ``seen`` is given).  Asserts the structure, K1's launches, the status
+    and the objective against the JAX CPU record; prints one line."""
+    from infiniteexamodels_jl_torch.backend import ExaTranscriptionBackend
+    from infiniteexamodels_jl_torch.solvers import IpmSolver
+    from infiniteexamodels_jl_torch.solvers.block_tridiag import (
+        BlockTridiagKKT)
+    objective, cpu_iters = record
+    # what earlier phases left allocated (collected first) is the baseline
+    # the peak is read against
+    gc.collect()
+    torch.cuda.synchronize()
+    baseline = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    backend = ExaTranscriptionBackend(IpmSolver, device="cuda",
+                                      linear_solver="auto", tol=1e-6,
+                                      print_level=0)
+    m.set_transformation_backend(backend)
+    backend.build(m)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    # the first solve builds the solver and its KKT (structure analysis)
+    res, first_s, launches, factorizations = solve_recorded(backend, m,
+                                                            chol_linv)
+    kkt = backend.solver.kkt
+    # a dense fallback would factor an (n, n) matrix: never on this path
+    assert type(kkt) is BlockTridiagKKT, type(kkt)
+    nb = kkt.nb
+    assert (kkt.mode, kkt.bs, kkt.mB) == ("block_diag", bs, mB), (
+        kkt.mode, kkt.bs, kkt.mB)
+    assert launches > 0, launches
+    # block_diag factors every block in one K1 launch
+    per_factorization = launches / factorizations
+    assert per_factorization == 1, (launches, factorizations)
+    assert res.status == "first_order", (tag, res.status)
+    rel = abs(res.objective - objective) / abs(objective)
+    assert rel <= 1e-6, (tag, res.objective, rel)
+    res2, warm_s, _, _ = solve_recorded(backend, m, chol_linv, seen)
+    peak = torch.cuda.max_memory_allocated()
+    assert res2.status == "first_order" and res2.iter == res.iter, (
+        res2.status, res2.iter)
+    print(json.dumps({
+        "scenario": tag, "nvar": backend.model.nvar,
+        "ncon": backend.model.ncon, "kkt": type(kkt).__name__,
+        "mode": kkt.mode, "nb": nb, "bs": kkt.bs, "mB": kkt.mB,
+        "status": res.status, "iterations": res.iter,
+        "reference_cpu_iterations": cpu_iters, "objective": res.objective,
+        "objective_rel_err": rel, "build_s": build_s,
+        "first_solve_s": first_s, "warm_resolve_s": warm_s,
+        "k1_launches": launches, "factorizations": factorizations,
+        "k1_launches_per_factorization": per_factorization,
+        "memory_baseline_bytes": baseline,
+        "peak_memory_above_baseline_bytes": peak - baseline,
+        **segsum_record(backend.model, kkt)}))
+    return nb, launches, per_factorization
+
+
+def k1_scenario_record(D, launches, per_factorization, chol_linv,
+                       chol_linv_reference):
+    """K1 at the scenario shape on real blocks: backward errors, device
+    times (kernel, plain, library) and the bound of one factorization;
+    ``launches`` and ``per_factorization`` are the solve's, as counted."""
+    err, rel = check_backward("opf16000_blocks", D, chol_linv,
+                              chol_linv_reference)
+    times = k1_times(D, chol_linv, chol_linv_reference, 20)
+    bound_ms, bound_by = k1_bound_ms(D.shape[0], D.shape[-1], D.dtype)
+    return {"shape": list(D.shape), "dtype": str(D.dtype),
+            "launches_per_factorization": per_factorization,
+            "launches": launches,
+            "max_abs_err": err, "max_rel_err": rel,
+            "ms": times["kernel_device_ms"],
+            "plain_ms": times["plain_device_ms"],
+            "library_ms": times["library_device_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "event_ms": {k: times[k + "_event_ms"]
+                         for k in ("kernel", "plain", "library")}}
+
+
+def determinism(tag, make_model):
+    """Two solves of ``make_model()`` on the card: every iterate
+    bit-identical."""
+    from infiniteexamodels_jl_torch.backend import ExaTranscriptionBackend
+    from infiniteexamodels_jl_torch.solvers import IpmSolver
+
+    class Recording(IpmSolver):
+        trace = []
+
+        def _step(self, st, consts, kkt=None):
+            st = super()._step(st, consts, kkt)
+            Recording.trace.append(
+                torch.cat([st.x, st.s, st.y, st.zl, st.zu]).clone())
+            return st
+
+    traces = []
+    for _ in range(2):
+        Recording.trace = []
+        m = make_model()
+        b = ExaTranscriptionBackend(Recording, device="cuda",
+                                    linear_solver="auto", tol=1e-6,
+                                    print_level=0)
+        m.set_transformation_backend(b)
+        r = b.optimize(m)
+        assert r.status == "first_order", r.status
+        traces.append(Recording.trace)
+    assert len(traces[0]) == len(traces[1]) > 0
+    same = all(torch.equal(a, c) for a, c in zip(*traces))
+    assert same, f"{tag} iterates differ between two runs"
+    print(json.dumps({"determinism": tag, "iterates": len(traces[0]),
+                      "bit_identical": same}))
+
+
+def scenario_phases(chol_linv, chol_linv_reference):
+    """Phases 7-10; returns K1's record at the opf-16000 shape."""
+    from infiniteexamodels_jl_torch.models import farmer, opf
+
+    # 7. scenario mode: opf-1000 and opf-16000 (the reference sweep's
+    # smallest and largest sizes)
+    for S in (1000, 16000):
+        blocks = [] if S == 16000 else None
+        nb, launches, per_fact = scenario_solve(
+            f"opf-{S}", opf(num_supports=S), OPF_RECORDS[S], 24, 6,
+            chol_linv, blocks)
+        assert nb == S + 1, (S, nb)
+    # 8. K1 on the recorded opf-16000 blocks (the last factorization of
+    # the warm re-solve)
+    (D,) = blocks
+    assert tuple(D.shape) == (16001, 24, 24), D.shape
+    record = k1_scenario_record(D, launches, per_fact, chol_linv,
+                                chol_linv_reference)
+    del blocks, D
+    # 9. farmer-1000, the reference's default size
+    nb, _, _ = scenario_solve("farmer-1000", farmer(num_scenarios=1000),
+                           FARMER1000, 8, 3, chol_linv)
+    assert nb == 1000, nb
+    # 10. determinism: two opf-1000 solves
+    determinism("opf-1000", lambda: opf(num_supports=1000))
+    return record
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -261,7 +475,7 @@ def main():
         return 1
     from infiniteexamodels_jl_torch.backend import ExaTranscriptionBackend
     from infiniteexamodels_jl_torch.models import quad
-    from infiniteexamodels_jl_torch.solvers import IpmSolver, block_tridiag
+    from infiniteexamodels_jl_torch.solvers import IpmSolver
     from infiniteexamodels_jl_torch.solvers.block_tridiag import (
         BlockTridiagKKT)
     from infiniteexamodels_jl_torch.solvers.chol_linv import (
@@ -299,39 +513,27 @@ def main():
     m.set_transformation_backend(backend)
     backend.build(m)
     build_s = time.time() - t0
-    chol_linv.launches = 0
-    t0 = time.time()
-    res = backend.optimize(m)
-    torch.cuda.synchronize()
-    first_s = time.time() - t0
-    launches = chol_linv.launches
+    res, first_s, launches, factorizations = solve_recorded(backend, m,
+                                                            chol_linv)
     kkt = backend.solver.kkt
     assert type(kkt) is BlockTridiagKKT, type(kkt)
     assert kkt.mode == "band" and kkt.nb == 688 and kkt.bs == 64, (
         kkt.mode, kkt.nb, kkt.bs)
     assert launches > 0, launches
+    # one K1 launch per BCR level
+    per_factorization = launches / factorizations
+    assert per_factorization == len(QUAD1000_LEVELS), (launches,
+                                                       factorizations)
     assert res.status == "first_order", res.status
     rel = abs(res.objective - QUAD1000_OBJECTIVE) / QUAD1000_OBJECTIVE
     assert rel <= 1e-6, (res.objective, rel)
     first_iters = res.iter
-    # the re-solve also records the blocks of every K1 call: the last 11
-    # are the last band factorization of the solve (a late iteration)
+    # the re-solve (with the built solver) also records the blocks of every
+    # K1 call: the last 11 are the last band factorization of the solve (a
+    # late iteration)
     seen = []
-    k1 = block_tridiag._chol_linv
-
-    def recording(D):
-        seen.append(D.detach().clone(memory_format=torch.contiguous_format))
-        del seen[:-len(QUAD1000_LEVELS)]
-        return k1(D)
-
-    block_tridiag._chol_linv = recording
-    try:
-        t0 = time.time()
-        res2 = backend.optimize(m)      # re-solve with the built solver
-        torch.cuda.synchronize()
-        warm_s = time.time() - t0
-    finally:
-        block_tridiag._chol_linv = k1
+    res2, warm_s, _, _ = solve_recorded(backend, m, chol_linv, seen,
+                                        keep=len(QUAD1000_LEVELS))
     assert tuple(D.shape[0] for D in seen) == QUAD1000_LEVELS, [
         D.shape for D in seen]
     assert res2.status == "first_order" and res2.iter == first_iters
@@ -344,39 +546,21 @@ def main():
         "objective_rel_err": rel, "build_s": build_s,
         "first_solve_s": first_s, "warm_resolve_s": warm_s,
         "iters_per_s_warm": first_iters / warm_s,
-        "k1_launches": launches,
-        "k1_launches_per_factorization": len(QUAD1000_LEVELS)}))
+        "k1_launches": launches, "factorizations": factorizations,
+        "k1_launches_per_factorization": per_factorization,
+        **segsum_record(backend.model, kkt)}))
 
     # 5. determinism: two quad-200 solves, every iterate bit-identical
-    class Recording(IpmSolver):
-        trace = []
-
-        def _step(self, st, consts, kkt=None):
-            st = super()._step(st, consts, kkt)
-            Recording.trace.append(
-                torch.cat([st.x, st.s, st.y, st.zl, st.zu]).clone())
-            return st
-
-    traces = []
-    for _ in range(2):
-        Recording.trace = []
-        mq = quad(num_supports=200)
-        b = ExaTranscriptionBackend(Recording, device="cuda",
-                                    linear_solver="auto", tol=1e-6,
-                                    print_level=0)
-        mq.set_transformation_backend(b)
-        r = b.optimize(mq)
-        assert r.status == "first_order", r.status
-        traces.append(Recording.trace)
-    assert len(traces[0]) == len(traces[1]) > 0
-    same = all(torch.equal(a, c) for a, c in zip(*traces))
-    assert same, "quad-200 iterates differ between two runs"
-    print(json.dumps({"determinism": "quad-200", "iterates": len(traces[0]),
-                      "bit_identical": same}))
+    determinism("quad-200", lambda: quad(num_supports=200))
 
     # 6. K1 on the recorded quad-1000 blocks; the kernels line
     record = k1_main_path_record(seen, chol_linv, chol_linv_reference,
                                  launches)
+    del m, backend, kkt, seen
+
+    # 7.-10. scenario mode
+    record["opf16000"] = scenario_phases(chol_linv, chol_linv_reference)
+
     print(json.dumps({"elapsed_s": time.time() - t_start}))
     print(json.dumps({"kernels": [record]}))
     print(json.dumps({"ok": True, "device": {

@@ -30,7 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.segsum import apply_plan, gather_plan
+from ..ops.segsum import SegmentSum
 from .chol_linv import chol_linv
 from .kkt import DenseKKT
 
@@ -191,12 +191,13 @@ class BlockTridiagKKT:
             # scenario mode: one block per component, padded to a common bs
             bs = _round_up(int(comp_sizes.max()), 8)
             nb = int(ncomp)
-            offsets = np.zeros(n, dtype=np.int64)
-            counter = np.zeros(ncomp, dtype=np.int64)
-            for k, v in zip(labels, t_ids):
-                offsets[v] = counter[k]
-                counter[k] += 1
-            slot[t_ids] = labels * bs + offsets[t_ids]
+            # position of each T variable inside its component, in
+            # variable order: rank within a stable sort by component
+            by_comp = np.argsort(labels, kind="stable")
+            first = np.concatenate([[0], np.cumsum(comp_sizes)[:-1]])
+            offsets = np.empty(nT, dtype=np.int64)
+            offsets[by_comp] = np.arange(nT) - first[labels[by_comp]]
+            slot[t_ids] = labels * bs + offsets
             self.mode = "block_diag"
         else:
             # time mode: band ordering.  Two candidates, smaller bandwidth
@@ -275,21 +276,23 @@ class BlockTridiagKKT:
         def as_t(a):
             return torch.as_tensor(a, device=self.device)
 
-        # gather + segment-sum + unique-set plans: (take-table, unique
-        # sorted flat destination) per target block array
+        # gather + segment-sum plans of the COO value stream, one per
+        # target block array
         nnz_total = len(rows)
 
-        def plan(sel, dest):
-            tab, u = gather_plan(dest, sel, nnz_total)
-            return as_t(tab), as_t(u)
+        def plan(sel, dest, size):
+            return SegmentSum(dest, size, self.device, sel=sel,
+                              nnz_total=nnz_total)
 
-        self.D_tab, self.D_u = plan(
-            selD, blk_r[selD] * bs * bs + off_r[selD] * bs + off_c[selD])
-        self.L_tab, self.L_u = plan(
-            selL, blk_c[selL] * bs * bs + off_r[selL] * bs + off_c[selL])
-        self.B_tab, self.B_u = plan(selB, pr[selB] * mB + bpos[cc[selB]])
-        self.C_tab, self.C_u = plan(
-            selC, bpos[rr[selC]] * mB + bpos[cc[selC]])
+        self.D_plan = plan(
+            selD, blk_r[selD] * bs * bs + off_r[selD] * bs + off_c[selD],
+            nb * bs * bs)
+        self.L_plan = plan(
+            selL, blk_c[selL] * bs * bs + off_r[selL] * bs + off_c[selL],
+            max(nb - 1, 1) * bs * bs)
+        self.B_plan = plan(selB, pr[selB] * mB + bpos[cc[selB]], nTpad * mB)
+        self.C_plan = plan(selC, bpos[rr[selC]] * mB + bpos[cc[selC]],
+                           mB * mB)
 
         # scatter targets for diagonal additions + rhs permutation
         self._slot_np = slot
@@ -328,17 +331,14 @@ class BlockTridiagKKT:
         dt = vals.dtype
         nb, bs, mB = self.nb, self.bs, self.mB
 
-        def scat(tab, u, shape):
-            return apply_plan(vals, tab, u, int(np.prod(shape))).reshape(shape)
-
         if nb > 1 and not self.block_diag:
-            L = scat(self.L_tab, self.L_u, (nb - 1, bs, bs))
+            L = self.L_plan(vals).reshape(nb - 1, bs, bs)
         else:
             L = torch.zeros((max(nb - 1, 1), bs, bs), dtype=dt,
                             device=vals.device)
-        Dflat = scat(self.D_tab, self.D_u, (nb * bs * bs,))
-        B = scat(self.B_tab, self.B_u, (self.nTpad, mB))
-        C = scat(self.C_tab, self.C_u, (mB, mB))
+        Dflat = self.D_plan(vals)
+        B = self.B_plan(vals).reshape(self.nTpad, mB)
+        C = self.C_plan(vals).reshape(mB, mB)
         # unique destinations: a plain indexed add, deterministic
         Dflat[self.diag_dest] += diag_extra[self.diag_take].to(dt)
         D = Dflat.reshape(nb, bs, bs) + self.pad_eye.to(dt)

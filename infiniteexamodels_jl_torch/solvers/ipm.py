@@ -21,8 +21,11 @@ Algorithm skeleton (Waechter-Biegler filter line search, monotone barrier):
 
 Tensors stay on the model's device; the iteration is an eager host loop
 (one ``_step`` per iteration, each inner loop a Python loop that reads its
-condition back from the device).  Every option that is off by default in
-the reference and is not ported yet raises ``NotImplementedError``.
+condition back from the device).  The host-side decisions that the
+reference takes once per device chunk of 32 iterations (the least-squares
+dual recalc triggers) are taken at the same iterations here.  The options
+that are not ported yet (the low-precision step sets and the host LDL)
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -51,6 +54,10 @@ _STATUS_NAMES = {
 }
 
 FILTER_SIZE = 128
+# iterations per host round-trip of the reference's non-verbose loop: the
+# recalc triggers are evaluated at the iterations where it returns to the
+# host, so the two trajectories agree
+HOST_CHUNK = 32
 
 
 class IpmState(NamedTuple):
@@ -120,7 +127,7 @@ DEFAULTS = dict(
     kappa_epsilon=10.0,
     kappa_mu=0.2,
     theta_mu=1.5,
-    barrier="monotone",     # "adaptive" (LOQO-clipped) is not ported
+    barrier="monotone",     # or "adaptive": LOQO centrality-clipped mu
     tau_min=0.99,
     gamma_theta=1e-5,
     gamma_phi=1e-5,
@@ -139,11 +146,26 @@ DEFAULTS = dict(
     kappa_w_minus=1.0 / 3.0,
     delta_c_bar=1e-8,
     delta_c_mu_floor=0.0,    # optional mu floor inside the delta_c schedule
-    ray_damping=False,       # not ported
-    prox_dual_kappa=0.0,     # not ported (0 = off)
-    recalc_y=False,          # not ported
-    recalc_y_stall=False,    # not ported
-    recalc_y_obj_gate=False,  # not ported
+    # dual-ray proximal damping: while the ray signature is live (some
+    # |y| beyond ray_y_cap, primal converged, capped dual error far from
+    # stationary) the constraint rows pull the multiplier excess beyond
+    # the cap toward zero with weight ray_delta
+    ray_damping=False,
+    ray_delta=1e-8,
+    ray_y_cap=1e4,
+    # mu-scaled dual-step damping kappa*mu, engaged once
+    # mu <= prox_dual_mu_max (0 = off)
+    prox_dual_kappa=0.0,
+    prox_dual_mu_max=1e-3,
+    # least-squares dual recalc (Ipopt recalc_y role) when max |y| passes
+    # recalc_y_cap ...
+    recalc_y=False,
+    recalc_y_cap=1e3,
+    # ... or on the feasible-but-dual-stalled crawl (pr <= 1e2*tol,
+    # du > 1e4*tol, alpha <= 0.25), optionally only once the objective has
+    # stopped decreasing; checked every HOST_CHUNK iterations
+    recalc_y_stall=False,
+    recalc_y_obj_gate=False,
     max_backtracks=40,
     soc=True,                # second-order correction (Ipopt A-5.7..5.9)
     refine_max=10,           # iterative-refinement round cap
@@ -181,19 +203,14 @@ DEFAULTS = dict(
     resto_max_entries=5,     # restoration rounds before giving up (stalled)
     resto_zeta=1e-6,         # proximal weight on ||x - x_entry||_{D_R}
     resto_delta_init=1e-8,   # initial LM damping
-    dual_init="zero",        # "lsq" is not ported
+    # "zero" starts y at the user/warm-start value; "lsq" at the
+    # least-squares stationarity fit (Ipopt least_square_init_duals role)
+    dual_init="zero",
 )
 
 # options whose non-default values select code paths not ported yet
 _NOT_PORTED = {
-    "barrier": lambda v: v != "monotone",
     "factor_dtype": lambda v: v != "float64",
-    "ray_damping": bool,
-    "prox_dual_kappa": bool,
-    "recalc_y": bool,
-    "recalc_y_stall": bool,
-    "recalc_y_obj_gate": bool,
-    "dual_init": lambda v: v != "zero",
     "linear_solver": lambda v: v in ("ldl_cpp", "ma27"),
 }
 
@@ -572,6 +589,21 @@ class IpmSolver:
                                                 ACCEPTABLE, RUNNING))))
 
         # -- barrier update (may fire repeatedly) -------------------------
+        # adaptive mode: the next mu is the LOQO centrality rule
+        # sigma = 0.1*min(0.05*(1-xi)/xi, 2)^3 applied to the average
+        # complementarity, clipped into [monotone schedule, 0.8*mu]
+        if o["barrier"] == "adaptive":
+            z0 = torch.cat([st.x, st.s])
+            cp = torch.cat([torch.where(has_l, (z0 - lz) * st.zl, 0.0),
+                            torch.where(has_u, (uz - z0) * st.zu, 0.0)])
+            cmask = torch.cat([has_l, has_u])
+            avg_c = torch.sum(torch.where(cmask, cp, 0.0)) / torch.clamp(
+                torch.sum(cmask), min=1)
+            min_c = _amin_inf(torch.where(cmask, cp, inf))
+            xi = min_c / torch.clamp(avg_c, min=torch.finfo(dt).tiny)
+            sig_c = 0.1 * torch.clamp(
+                0.05 * (1.0 - xi) / torch.clamp(xi, min=1e-12), max=2.0) ** 3
+            mu_loqo = sig_c * avg_c
         mu, tau = st.mu, st.tau
         filter_len, filter_theta, filter_phi = (st.filter_len,
                                                 st.filter_theta,
@@ -584,6 +616,9 @@ class IpmSolver:
             mu_new = torch.maximum(
                 mu_floor,
                 torch.minimum(o["kappa_mu"] * mu, mu ** o["theta_mu"]))
+            if o["barrier"] == "adaptive":
+                mu_new = torch.minimum(torch.maximum(mu_loqo, mu_new),
+                                       0.8 * mu)
             tau = torch.clamp(1.0 - mu_new, min=o["tau_min"])
             # reset filter to the theta_max entry only
             ft_new = torch.full_like(filter_theta, inf)
@@ -618,6 +653,37 @@ class IpmSolver:
         delta_c_floor = o["delta_c_bar"] * \
             torch.clamp(mu, min=o["delta_c_mu_floor"]) ** 0.25
 
+        # dual-ray proximal damping (the ray_* options): zero everywhere
+        # except inside a live ray signature; with its proximal pull on the
+        # capped excess of y.  Both are None when the option is off, and so
+        # is the mu-scaled dual-step damping (prox_dual_kappa), gated on mu
+        # so the global phase's basin is untouched: the default step runs
+        # none of their elementwise work
+        delta_prox = prox_pull = delta_pd = None
+        if o["ray_damping"]:
+            ray_live = ((_amax0(torch.abs(st.y)) > o["ray_y_cap"])
+                        & (inf_pr <= 1e2 * tol)
+                        & (inf_du / torch.clamp(sd, max=o["s_max"])
+                           > o["acceptable_visit_tol_factor"] * tol))
+            delta_prox = torch.where(ray_live, o["ray_delta"], zero)
+            prox_pull = delta_prox * (
+                st.y - torch.clamp(st.y, -o["ray_y_cap"], o["ray_y_cap"]))
+        if o["prox_dual_kappa"]:
+            delta_pd = torch.where(mu <= o["prox_dual_mu_max"],
+                                   o["prox_dual_kappa"] * mu, zero)
+
+        def damped(d):
+            """``d`` plus the dual damping that is on (in the reference's
+            order of additions)."""
+            if delta_prox is not None:
+                d = d + delta_prox
+            if delta_pd is not None:
+                d = d + delta_pd
+            return d
+
+        def pulled(r):
+            return r if prox_pull is None else r - prox_pull
+
         refine_tol = o["refine_tol"]
         refine_accept = o["refine_accept"]
         refine_max = o["refine_max"]
@@ -626,7 +692,7 @@ class IpmSolver:
 
         def make_step(delta_w, delta_c):
             inv_ss = 1.0 / (sigma_s + delta_w)
-            D = 1.0 / (inv_ss + delta_c)
+            D = 1.0 / damped(inv_ss + delta_c)
             diag_extra = sigma_x + delta_w
             # model-side values are for UNSCALED f and c: fold scalings in
             # (internal y multiplies scaled c_i = sc_i*c_i; scaled J = sc*J)
@@ -635,7 +701,7 @@ class IpmSolver:
                              consts["sf"] * m.sense, D * sc * sc, diag_extra)
             fac, ok = kkt.factor(K)
 
-            rhs2 = rp + inv_ss * rs
+            rhs2 = pulled(rp + inv_ss * rs)
             rhs = -(rx + m.jtprod(jvals, D * rhs2))
             dx = kkt.solve(fac, rhs)
             # residual-driven iterative refinement of the CONDENSED solve:
@@ -769,14 +835,14 @@ class IpmSolver:
             # violation as rhs and test the corrected step before falling
             # back to backtracking
             inv_ss_f = 1.0 / (sigma_s + dw_used)
-            D_f = 1.0 / (inv_ss_f + delta_c_floor)
+            D_f = 1.0 / damped(inv_ss_f + delta_c_floor)
             need_soc = ok_f & (~acc0) & (theta_t0 >= theta_c)
             use_soc = torch.zeros((), dtype=torch.bool, device=dev)
             if bool(need_soc):
                 stt = st.s + alpha_max * ds
                 ct = self._ceval(st.x + alpha_max * dx, consts)
                 rp_soc = alpha_max * rp + (ct - stt)
-                rhs2s = rp_soc + inv_ss_f * rs
+                rhs2s = pulled(rp_soc + inv_ss_f * rs)
                 rhs_s = -(rx + m.jtprod(jvals, D_f * rhs2s))
                 dxs = kkt.solve(fac_f, rhs_s)
                 dys = D_f * (m.jprod(jvals, dxs) + rhs2s)
@@ -937,6 +1003,44 @@ class IpmSolver:
             log_ls=_i32(ls_iters, dev),
             log_delta_w=dw_used, log_rr=rr_f, log_E0=E0,
         )
+
+    def _lsq_duals(self, st, consts):
+        """Least-squares equality multipliers at ``st`` (Ipopt
+        ``least_square_init_duals`` role).  With the lifted slack rows the
+        stationarity residual is ``[g - zl_x + zu_x + J^T y;
+        -(y + zl_s - zu_s)]``, whose normal equations are
+        ``(J J^T + I) y = -J r_x - zl_s + zu_s``; the ``+ I`` from the
+        slack rows makes plain CG well-conditioned.  Matrix-free: two COO
+        J-products per CG round, no factorization.  The result is bounded
+        by ``~||J^+|| ||r||`` however degenerate the active set is."""
+        m = self.model
+        n = m.nvar
+        tiny = torch.finfo(m.dtype).tiny
+        jvals = self._jvals(st.x, consts)
+        rx = self._geval(st.x, consts) - st.zl[:n] + st.zu[:n]
+        b = -m.jprod(jvals, rx) - st.zl[n:] + st.zu[n:]
+        bb = torch.dot(b, b)
+        y = torch.zeros(m.ncon, dtype=m.dtype, device=m.device)
+        p, r, rs = b, b, bb
+        k = 0
+        while k < 200 and bool(rs > 1e-24 * bb):
+            Ap = m.jprod(jvals, m.jtprod(jvals, p)) + p
+            alpha = rs / (torch.dot(p, Ap) + tiny)
+            y = y + alpha * p
+            r = r - alpha * Ap
+            rs_new = torch.dot(r, r)
+            p = r + (rs_new / (rs + tiny)) * p
+            rs = rs_new
+            k += 1
+        return y
+
+    def _dual_inf(self, st, consts):
+        """The dual infeasibility of ``st`` at its barrier mu, measured as
+        ``log_inf_du`` is."""
+        grad = self._geval(st.x, consts)
+        jv = self._jvals(st.x, consts)
+        cval = self._ceval(st.x, consts)
+        return self._kkt_error(st, consts, grad, jv, cval, st.mu)[2]
 
     # ------------------------------------------------------------------
     # feasibility restoration (role of Ipopt §3.3, which the reference
@@ -1150,6 +1254,9 @@ class IpmSolver:
             st = self._init_state(x0, y0s, consts, zl_full, zu_full)
         else:
             st = self._init_state(x0, y0s, consts)
+        if o["dual_init"] == "lsq":
+            y_lsq = self._lsq_duals(st, consts)
+            st = st._replace(y=y_lsq, best_y=y_lsq)
         timers = {"build": np.nan, "step_total": 0.0, "first_chunk": np.nan}
         status = "max_iter"
         verbose = o["print_level"] >= 5
@@ -1158,6 +1265,9 @@ class IpmSolver:
                   "alpha  alpha_z  ls   dw      rr      E0")
         it = 0
         resto_entries = 0
+        prev_chunk_obj = None      # recalc_y_stall objective-stall gate
+        chunk = 1 if verbose else HOST_CHUNK
+        chunk_end = min(chunk, o["max_iter"])
         while it < o["max_iter"]:
             t0 = time.time()
             st = self._step(st, consts)
@@ -1167,6 +1277,11 @@ class IpmSolver:
             timers["step_total"] += dt_step
             if np.isnan(timers["first_chunk"]):
                 timers["first_chunk"] = dt_step
+            # the reference's device loop returns to the host when a step
+            # leaves RUNNING or the chunk's iterations are done
+            at_host = code != RUNNING or it >= chunk_end
+            if at_host:
+                chunk_end = min(it + chunk, o["max_iter"])
             if code == NEED_RESTORATION:
                 if resto_entries < o["resto_max_entries"]:
                     resto_entries += 1
@@ -1186,6 +1301,33 @@ class IpmSolver:
                       f"{float(st.log_alpha_z):6.4f} {int(st.log_ls):3d} "
                       f"{float(st.log_delta_w):7.1e} {float(st.log_rr):7.1e}"
                       f" {float(st.log_E0):7.1e}")
+            if at_host and code == RUNNING and (o["recalc_y"]
+                                                or o["recalc_y_stall"]):
+                # degenerate-ray dual reset (Ipopt recalc_y role): replace
+                # multipliers riding a near-null-space ray with the
+                # minimal-norm stationarity fit at the current iterate
+                tol_h = float(consts["tol"])
+                fire = False
+                if o["recalc_y"]:
+                    fire = float(_amax0(torch.abs(st.y))) > o["recalc_y_cap"]
+                if not fire and o["recalc_y_stall"]:
+                    # the terminal crawl creeps the objective upward while
+                    # a productive feasible crawl still descends: the sign
+                    # of the change separates them
+                    obj_now = float(st.log_obj)
+                    obj_stalled = (prev_chunk_obj is not None
+                                   and obj_now >= prev_chunk_obj
+                                   - 1e-5 * max(1.0, abs(obj_now)))
+                    prev_chunk_obj = obj_now
+                    fire = ((obj_stalled or not o["recalc_y_obj_gate"])
+                            and float(st.log_inf_pr) <= 1e2 * tol_h
+                            and float(st.log_inf_du) > 1e4 * tol_h
+                            and float(st.log_alpha) <= 0.25)
+                if fire:
+                    st = st._replace(y=self._lsq_duals(st, consts))
+                    if verbose:
+                        print(f"{it:4d}  -- least-squares dual recalc "
+                              f"(du={float(st.log_inf_du):.1e}) --")
             if code != RUNNING:
                 status = _STATUS_NAMES[code]
                 break
@@ -1210,6 +1352,18 @@ class IpmSolver:
                 if verbose:
                     print(f"{it:4d}  -- limit hit: best iterate restored "
                           f"(E={best_E:.1e}) => acceptable --")
+
+        # final dual polish on "acceptable" exits: one least-squares recalc
+        # of the multipliers at the returned iterate, kept only if the true
+        # dual infeasibility improves
+        if status == "acceptable" and (o["recalc_y"] or o["recalc_y_stall"]):
+            st_pol = st._replace(y=self._lsq_duals(st, consts))
+            du_pol = self._dual_inf(st_pol, consts)
+            if float(du_pol) < float(st.log_inf_du):
+                st = st_pol._replace(log_inf_du=du_pol)
+                if verbose:
+                    print(f"{it:4d}  -- dual polish: du -> "
+                          f"{float(du_pol):.2e} --")
 
         n = m.nvar
         sf, sc = consts["sf"], consts["sc"]

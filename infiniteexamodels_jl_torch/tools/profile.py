@@ -1,6 +1,9 @@
-"""Where the time goes in one quadrotor solve on the CUDA card.
+"""Where the time goes in one solve on the CUDA card.
 
-    python -m infiniteexamodels_jl_torch.tools.profile [--size 1000]
+    python -m infiniteexamodels_jl_torch.tools.profile [--model quad|opf]
+        [--size 1000]
+
+``--size`` is the quadrotor's supports or the OPF's scenarios.
 
 Prints one JSON object per line:
 
@@ -32,7 +35,7 @@ import time
 import torch
 
 from ..backend import ExaTranscriptionBackend
-from ..models import quad
+from ..models import opf, quad
 from ..solvers import IpmSolver, block_tridiag
 from ..solvers.chol_linv import chol_linv_reference
 
@@ -50,8 +53,11 @@ class _TracedIpm(IpmSolver):
         return st
 
 
-def _solve(size, device):
-    m = quad(num_supports=size)
+MODELS = {"quad": quad, "opf": opf}
+
+
+def _solve(model, size, device):
+    m = MODELS[model](num_supports=size)
     b = ExaTranscriptionBackend(_TracedIpm, device=device,
                                 linear_solver="auto", tol=1e-6,
                                 print_level=0)
@@ -73,6 +79,7 @@ def device_us(evt):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=sorted(MODELS), default="quad")
     ap.add_argument("--size", type=int, default=1000)
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args(argv)
@@ -85,9 +92,9 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(json.dumps({"card": card, "size": args.size}))
+    print(json.dumps({"card": card, "model": args.model, "size": args.size}))
 
-    m, b, res = _solve(args.size, "cuda")
+    m, b, res = _solve(args.model, args.size, "cuda")
     e0_card = list(b.solver.e0)
     phases = b.solver.profile_phases()
     print(json.dumps({"phases_ms": {k: 1e3 * v for k, v in phases.items()}}))
@@ -128,12 +135,12 @@ def main(argv=None):
                     (i for i, r in enumerate(rel) if r > 1e-9), None),
                 "e0_rel_diff": rel, "e0": list(e0)}
 
-    _, bc, rc = _solve(args.size, "cpu")
+    _, bc, rc = _solve(args.model, args.size, "cpu")
     cpu = against_card(bc.solver.e0, rc)
     k1 = block_tridiag._chol_linv
     block_tridiag._chol_linv = lambda D: chol_linv_reference(D.contiguous())
     try:
-        _, bp, rp = _solve(args.size, "cuda")
+        _, bp, rp = _solve(args.model, args.size, "cuda")
     finally:
         block_tridiag._chol_linv = k1
     plain = against_card(bp.solver.e0, rp)

@@ -1,7 +1,9 @@
-"""The PyTorch port's band/block KKT backend against the JAX package's:
+"""The PyTorch port's band/block KKT backend against the JAX package's on
+quad-12 (band), hovercraft-41 and farmer-64 (scenario blocks with a border):
 structure analysis (equal), block assembly (rtol 1e-12), and factor+solve
-against the JAX backend and against the port's dense backend (rtol 1e-8,
-as in test_block_kkt.py's ``_linear_system_parity``)."""
+against the JAX backend and against the port's dense backend (rtol 1e-10;
+test_block_kkt.py's ``_linear_system_parity`` holds the JAX backends to
+1e-8)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +24,8 @@ from infiniteexamodels_jl_torch.transcribe import transcribe as ttranscribe
 CASES = {
     "quad12": lambda M: M.quad(num_supports=12),
     "hovercraft41": lambda M: M.hovercraft(num_supports=41),
+    # scenario blocks plus the first-stage arrowhead border
+    "farmer64": lambda M: M.farmer(num_scenarios=64),
 }
 KW = dict(min_blocks=2)
 
@@ -59,13 +63,38 @@ def test_structure_matches_jax(case):
     assert (jb.mode, jb.nb, jb.bs, jb.mB, jb.block_diag) == \
         (tb.mode, tb.nb, tb.bs, tb.mB, tb.block_diag)
     # quad-12 is band mode; hovercraft-41 splits into two components
-    # (one per axis) and takes the block-diagonal branch
-    assert tb.mode == {8: "band", 2: "block_diag"}[tb.nb]
+    # (one per axis) and takes the block-diagonal branch; farmer-64 has one
+    # block per scenario and the 3 first-stage variables as its border
+    assert (tb.mode, tb.mB) == {8: ("band", 0), 2: ("block_diag", 0),
+                                64: ("block_diag", 3)}[tb.nb]
     assert np.array_equal(jb._slot_np, tb._slot_np)
-    for name in ("D_tab", "D_u", "L_tab", "L_u", "B_tab", "B_u", "C_tab",
-                 "C_u", "diag_take", "diag_dest", "slot_src", "out_perm"):
+    # the assembly plans add the same value positions into each
+    # destination, in the same order
+    nnz = len(tm.hess_rows_np)
+    for name in "DLBC":
+        want = _segments(np.asarray(getattr(jb, name + "_tab")),
+                         np.asarray(getattr(jb, name + "_u")), nnz)
+        got = getattr(tb, name + "_plan")
+        assert _plan_segments(got, nnz) == want, name
+    for name in ("diag_take", "diag_dest", "slot_src", "out_perm"):
         assert np.array_equal(np.asarray(getattr(jb, name)),
                               getattr(tb, name).numpy()), name
+
+
+def _segments(tab, u, sentinel):
+    """{destination: value positions in summation order} of a take-table."""
+    return {int(d): [int(i) for i in row if i != sentinel]
+            for d, row in zip(u, tab)}
+
+
+def _plan_segments(plan, sentinel):
+    out = {}
+    k = 0
+    for tab in plan.tabs:
+        out.update(_segments(tab.numpy(), plan.u[k:k + len(tab)].numpy(),
+                             sentinel))
+        k += len(tab)
+    return out
 
 
 def test_assembled_blocks_match_jax(case):
@@ -86,7 +115,7 @@ def test_factor_solve_match_jax_and_dense(case):
     rhs = torch.as_tensor(pt["rhs"])
     xt = tb.solve(ft, rhs).numpy()
     xj = np.asarray(jb.solve(fj, jnp.asarray(pt["rhs"])))
-    np.testing.assert_allclose(xt, xj, rtol=1e-8, atol=1e-8)
+    np.testing.assert_allclose(xt, xj, rtol=1e-10, atol=1e-10)
     dense = DenseKKT(tm)
     Kd = dense.assemble(torch.as_tensor(pt["x"]), tm.theta,
                         torch.as_tensor(pt["lam"]), 1.0,
@@ -96,8 +125,8 @@ def test_factor_solve_match_jax_and_dense(case):
                                rtol=1e-10, atol=1e-8)
     fd, okd = dense.factor(Kd)
     assert bool(okd)
-    np.testing.assert_allclose(xt, dense.solve(fd, rhs).numpy(), rtol=1e-8,
-                               atol=1e-8)
+    np.testing.assert_allclose(xt, dense.solve(fd, rhs).numpy(), rtol=1e-10,
+                               atol=1e-10)
 
 
 def test_not_spd_gives_not_ok(case):

@@ -174,10 +174,7 @@ def test_hot_parameter_update_resolve():
 
 
 @pytest.mark.parametrize("option", [
-    dict(factor_dtype="mixed"), dict(ray_damping=True),
-    dict(prox_dual_kappa=1.0), dict(recalc_y=True),
-    dict(recalc_y_stall=True), dict(dual_init="lsq"),
-    dict(linear_solver="ldl_cpp"), dict(barrier="adaptive"),
+    dict(factor_dtype="mixed"), dict(linear_solver="ldl_cpp"),
 ])
 def test_options_not_ported_raise(option):
     tm, _ = ttranscribe(tmodels.hovercraft(num_supports=11), device="cpu")

@@ -1,4 +1,5 @@
-"""The PyTorch port's SimdModel against the JAX package's on quad-12: every
+"""The PyTorch port's SimdModel against the JAX package's on quad-12, and
+on the scenario families opf-10 (sin/cos power flows) and farmer-64: every
 evaluation method at one seeded point, f64, rtol 1e-12 / atol 1e-14 (the two
 packages' sin/cos differ by a few ulp and sum in different orders)."""
 import jax
@@ -21,10 +22,9 @@ from infiniteexamodels_jl_torch.transcribe import transcribe as ttranscribe
 RTOL, ATOL = 1e-12, 1e-14
 
 
-@pytest.fixture(scope="module")
-def pair():
-    jm, _ = jtranscribe(jmodels.quad(num_supports=12))
-    tm, _ = ttranscribe(tmodels.quad(num_supports=12), device="cpu")
+def _pair(build):
+    jm, _ = jtranscribe(build(jmodels))
+    tm, _ = ttranscribe(build(tmodels), device="cpu")
     rng = np.random.default_rng(0)
     pt = dict(
         x=np.asarray(jm.x0) + 0.1 * rng.standard_normal(jm.nvar),
@@ -36,6 +36,22 @@ def pair():
         w=rng.standard_normal(jm.ncon),
     )
     return jm, tm, pt
+
+
+@pytest.fixture(scope="module")
+def pair():
+    return _pair(lambda M: M.quad(num_supports=12))
+
+
+SCENARIO_CASES = {
+    "opf10": lambda M: M.opf(num_supports=10),
+    "farmer64": lambda M: M.farmer(num_scenarios=64),
+}
+
+
+@pytest.fixture(scope="module", params=sorted(SCENARIO_CASES))
+def scenario_pair(request):
+    return _pair(SCENARIO_CASES[request.param])
 
 
 def _j(a):
@@ -82,6 +98,11 @@ def test_method_matches_jax(pair, name):
         {k: _j(v) for k, v in pt.items()})
     tout = CALLS[name](tm, {k: _t(v) for k, v in pt.items()})
     _close(jout, tout)
+
+
+@pytest.mark.parametrize("name", sorted(CALLS))
+def test_scenario_method_matches_jax(scenario_pair, name):
+    test_method_matches_jax(scenario_pair, name)
 
 
 def test_updates_fingerprint_and_queries(pair):

@@ -1,6 +1,7 @@
 """The PyTorch port's transcription against the JAX package's: the same
 model built in both packages must give EQUAL static tables (family gather
-indices and data, bounds, starts, parameters, Jacobian/Hessian patterns)."""
+indices and data, bounds, starts, parameters, Jacobian/Hessian patterns),
+for every model family."""
 import numpy as np
 import pytest
 
@@ -14,6 +15,16 @@ CASES = {
     "quad12": lambda M: M.quad(num_supports=12),
     # backward finite differences
     "hovercraft41": lambda M: M.hovercraft(num_supports=41),
+    # scenario families: expectations over sampled supports, first-stage
+    # coupling, MvNormal and Uniform draws from the model's seed
+    "farmer64": lambda M: M.farmer(num_scenarios=64),
+    "design3node32": lambda M: M.design_3node(num_scenarios=32),
+    "opf10": lambda M: M.opf(num_supports=10),
+    "opf_static": lambda M: M.opf_static(),
+    # time x scenario product grid with added supports
+    "pandemic25x4": lambda M: M.pandemic(num_supports=25, num_scenarios=4),
+    # Lobatto collocation with 4 nodes, front-loaded supports
+    "kinetics30": lambda M: M.kinetic_control(num_supports=30),
 }
 
 
