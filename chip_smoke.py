@@ -8,7 +8,8 @@ Phases (any failure raises and the script exits non-zero):
 
 1. the card's name and power limit; TF32 off for matmuls and cuDNN;
 2. build every kernel of the port from ``infiniteexamodels_jl_torch/csrc``
-   (one nvcc per source, all started together);
+   (one nvcc per source, all started together) and the host LDL library
+   (g++);
 3. K1 (``chol_linv``): the kernel against its plain PyTorch version at the
    quad-1000 band shapes and at n = 8 ... 512 across both paths of its
    launch plan (CTA, with 8 down to 1 warps a block, and cluster), both
@@ -42,7 +43,29 @@ Phases (any failure raises and the script exits non-zero):
 9. farmer-1000 (the reference's default size) in ``block_diag`` mode with
    the 3 first-stage variables as border, ``first_order`` at the JAX CPU
    record;
-10. determinism: opf-1000 solved twice gives bit-identical iterates.
+10. determinism: opf-1000 solved twice gives bit-identical iterates;
+11. the low-precision step sets: quad-1000 through the same backend with
+    ``factor_dtype`` "mixed", "ir32" and "float32" -- ``first_order`` at
+    the f64 record, K1's launches split by dtype (f32 launches asserted),
+    where the f32 phase handed over to f64 and why, first and warm solve
+    seconds, ms per step in the f32 and f64 phases, beside the JAX
+    package's CPU record of the same step set;
+12. K1 in f32 on the blocks of the last f32 band factorization of the
+    "mixed" solve: backward errors within 10x of the plain version's, the
+    kernel, plain and library device times and the bound (the ``f32``
+    record of the kernels line);
+13. opf-1000 with ``factor_dtype="mixed"`` in ``block_diag`` mode: one K1
+    launch per factorization, f32 ones counted, ``first_order`` at the JAX
+    CPU record of "mixed" (first solve only); K1 in f32 on the (1001, 24,
+    24) blocks of its last f32 factorization, backward errors within 10x
+    of the plain version's;
+14. the host LDL on the card's tensors: quad-200 with
+    ``linear_solver="ldl_cpp"``, ``first_order`` within 1e-8 of the band
+    path's objective on the card, ms per iteration of both;
+15. checkpoint and trace at quad-200 (f64 band): a solve cut at iteration
+    4 and resumed ends bit-identical to an uninterrupted one, in as many
+    iterations; a solve with ``trace_dir`` (three iterations) exports a
+    trace that names K1 among its CUDA kernels.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  The script exits non-zero and prints no
@@ -53,8 +76,11 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
+import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -65,6 +91,17 @@ QUAD1000_LEVELS = (344, 172, 86, 43, 21, 11, 5, 3, 1, 1, 1)
 # scenarios -> (objective, iterations)
 OPF_RECORDS = {1000: (5744.482317439771, 23), 16000: (5744.4823205514795, 18)}
 FARMER1000 = (-90957.71953975875, 38)
+# the JAX package on the host CPU, linear_solver="auto", tol=1e-6, in each
+# low-precision step set: (status, iterations, objective, last f32 step,
+# why the f32 phase ended); by `python -m tests.torch_vs_jax_trajectory
+# --model quad --size 1000 --factor-dtype <set>` (and `--model opf`)
+QUAD1000_LOWPREC = {
+    "mixed": ("first_order", 25, 568.8399758259147, 4, "mu_switch"),
+    "ir32": ("first_order", 31, 568.8399758433759, 25, "demotion"),
+    "float32": ("first_order", 23, 568.8399758433637, 4, "demotion"),
+}
+OPF1000_MIXED = ("first_order", 15, 5744.482320299224, 1, "demotion")
+ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM
 PEAK_FLOPS = {torch.float64: 67e12, torch.float32: 67e12}
 RTOL = {torch.float64: 1e-10, torch.float32: 1e-4}
@@ -275,39 +312,52 @@ def k1_main_path_record(blocks, chol_linv, chol_linv_reference, launches):
             "event_ms": {k: tot[k + "_event_ms"] for k in names}}
 
 
-def solve_recorded(backend, m, chol_linv, seen=None, keep=1):
+def solve_recorded(backend, m, chol_linv, seen=None, keep=1, dtype=None):
     """One solve on the card, with K1's launches (its count set to 0 just
     before) and the band/scenario KKT's factorizations (a hook around
-    ``BlockTridiagKKT.factor``) counted; with ``seen``, the blocks of the
-    last ``keep`` K1 calls are kept through a hook around
-    ``block_tridiag._chol_linv``.  Returns (result, seconds, launches,
-    factorizations)."""
+    ``BlockTridiagKKT.factor``) counted, and both counted again by dtype
+    (K1's through a hook around ``block_tridiag._chol_linv``); with
+    ``seen``, the blocks of the last ``keep`` calls (of ``dtype``, when
+    given) are kept.  Returns (result, seconds, launches, factorizations,
+    {"k1": launches by dtype, "factor": factorizations by dtype})."""
     from infiniteexamodels_jl_torch.solvers import block_tridiag
     k1 = block_tridiag._chol_linv
     factor = block_tridiag.BlockTridiagKKT.factor
     factorizations = [0]
+    by_dtype = {"k1": {}, "factor": {}}
+
+    def count(kind, dt):
+        name = str(dt).replace("torch.", "")
+        by_dtype[kind][name] = by_dtype[kind].get(name, 0) + 1
 
     def recording(D):
-        seen.append(D.detach().clone(memory_format=torch.contiguous_format))
-        del seen[:-keep]
+        count("k1", D.dtype)
+        if seen is not None and (dtype is None or D.dtype == dtype):
+            seen.append(D.detach().clone(
+                memory_format=torch.contiguous_format))
+            del seen[:-keep]
         return k1(D)
 
     def counted(self, K):
         factorizations[0] += 1
+        count("factor", self.factor_dtype or K[0].dtype)
         return factor(self, K)
 
-    if seen is not None:
-        block_tridiag._chol_linv = recording
+    block_tridiag._chol_linv = recording
     block_tridiag.BlockTridiagKKT.factor = counted
     try:
         chol_linv.launches = 0
         t0 = time.time()
         res = backend.optimize(m)
         torch.cuda.synchronize()
-        return res, time.time() - t0, chol_linv.launches, factorizations[0]
+        seconds = time.time() - t0
     finally:
         block_tridiag._chol_linv = k1
         block_tridiag.BlockTridiagKKT.factor = factor
+    # every call launched the kernel (the tensors are on the card)
+    assert sum(by_dtype["k1"].values()) == chol_linv.launches, (
+        by_dtype, chol_linv.launches)
+    return res, seconds, chol_linv.launches, factorizations[0], by_dtype
 
 
 def segsum_plans(model, kkt):
@@ -351,8 +401,8 @@ def scenario_solve(tag, m, record, bs, mB, chol_linv, seen=None):
     torch.cuda.synchronize()
     build_s = time.time() - t0
     # the first solve builds the solver and its KKT (structure analysis)
-    res, first_s, launches, factorizations = solve_recorded(backend, m,
-                                                            chol_linv)
+    res, first_s, launches, factorizations, _ = solve_recorded(backend, m,
+                                                               chol_linv)
     kkt = backend.solver.kkt
     # a dense fallback would factor an (n, n) matrix: never on this path
     assert type(kkt) is BlockTridiagKKT, type(kkt)
@@ -366,7 +416,7 @@ def scenario_solve(tag, m, record, bs, mB, chol_linv, seen=None):
     assert res.status == "first_order", (tag, res.status)
     rel = abs(res.objective - objective) / abs(objective)
     assert rel <= 1e-6, (tag, res.objective, rel)
-    res2, warm_s, _, _ = solve_recorded(backend, m, chol_linv, seen)
+    res2, warm_s, _, _, _ = solve_recorded(backend, m, chol_linv, seen)
     peak = torch.cuda.max_memory_allocated()
     assert res2.status == "first_order" and res2.iter == res.iter, (
         res2.status, res2.iter)
@@ -468,6 +518,279 @@ def scenario_phases(chol_linv, chol_linv_reference):
     return record
 
 
+def timed_solver():
+    """``IpmSolver`` that records (f32 step set?, status, iter, seconds) of
+    every step; a step's time ends when its status is on the host."""
+    from infiniteexamodels_jl_torch.solvers import IpmSolver
+
+    class Timed(IpmSolver):
+        def solve(self, *a, **k):
+            self.steps = []
+            return super().solve(*a, **k)
+
+        def _step(self, st, consts, kkt=None):
+            t0 = time.time()
+            st = super()._step(st, consts, kkt)
+            code = int(st.status)
+            self.steps.append((kkt is not None and kkt is self.kkt32, code,
+                               int(st.iter), time.time() - t0))
+            return st
+    return Timed
+
+
+def f32_phase(steps):
+    """Where the f32 step set handed over to f64 (the iteration of its last
+    step and why), and ms per step in each phase."""
+    from infiniteexamodels_jl_torch.solvers.ipm import DEMOTE_F32
+    f32 = [st for st in steps if st[0]]
+    f64 = [st for st in steps if not st[0]]
+    last = f32[-1] if f32 else None
+    handover = None
+    if last is not None and f64:
+        handover = [last[2], "demotion" if last[1] == DEMOTE_F32
+                    else "mu_switch"]
+    ms = {k: 1e3 * sum(st[3] for st in v) / len(v) if v else None
+          for k, v in (("f32", f32), ("f64", f64))}
+    return handover, len(f32), len(f64), ms
+
+
+def lowprec_quad_phase(chol_linv):
+    """Phase 11: quad-1000 in each low-precision step set; returns the
+    blocks of the last f32 band factorization of the "mixed" solve and that
+    solve's f32 K1 launches and f32 factorizations."""
+    from infiniteexamodels_jl_torch.backend import ExaTranscriptionBackend
+    from infiniteexamodels_jl_torch.models import quad
+    from infiniteexamodels_jl_torch.solvers.block_tridiag import (
+        BlockTridiagKKT)
+    Timed = timed_solver()
+    blocks, mixed = [], None
+    for fd, record in QUAD1000_LOWPREC.items():
+        m = quad(num_supports=1000)
+        backend = ExaTranscriptionBackend(Timed, device="cuda",
+                                          linear_solver="auto", tol=1e-6,
+                                          factor_dtype=fd, print_level=0)
+        m.set_transformation_backend(backend)
+        backend.build(m)
+        seen = blocks if fd == "mixed" else None
+        res, first_s, launches, facts, by_dtype = solve_recorded(
+            backend, m, chol_linv, seen, keep=len(QUAD1000_LEVELS),
+            dtype=torch.float32)
+        solver = backend.solver
+        assert type(solver.kkt) is BlockTridiagKKT, type(solver.kkt)
+        assert solver.kkt32 is not None and solver.kkt.mode == "band"
+        assert res.status == "first_order", (fd, res.status)
+        rel = abs(res.objective - QUAD1000_OBJECTIVE) / QUAD1000_OBJECTIVE
+        assert rel <= 1e-6, (fd, res.objective, rel)
+        # the f32 step set really factored in f32, on the card's kernel
+        assert by_dtype["k1"].get("float32", 0) > 0, (fd, by_dtype)
+        handover, n32, n64, _ = f32_phase(solver.steps)
+        res2, warm_s, _, _, _ = solve_recorded(backend, m, chol_linv)
+        assert res2.status == "first_order" and res2.iter == res.iter, (
+            fd, res2.status, res2.iter, res.iter)
+        _, _, _, ms = f32_phase(solver.steps)
+        print(json.dumps({
+            "lowprec": "quad-1000", "factor_dtype": fd,
+            "status": res.status, "iterations": res.iter,
+            "objective": res.objective, "objective_rel_err": rel,
+            "f32_until": handover, "f32_steps": n32, "f64_steps": n64,
+            "k1_launches": launches, "by_dtype": by_dtype,
+            "factorizations": facts, "first_solve_s": first_s,
+            "warm_resolve_s": warm_s, "warm_ms_per_step": ms,
+            "jax_cpu_record": dict(zip(
+                ("status", "iterations", "objective", "f32_until", "by"),
+                record))}))
+        if fd == "mixed":
+            mixed = (by_dtype["k1"]["float32"],
+                     by_dtype["factor"]["float32"])
+        del m, backend, solver
+    assert tuple(D.shape[0] for D in blocks) == QUAD1000_LEVELS, [
+        D.shape for D in blocks]
+    assert all(D.dtype == torch.float32 for D in blocks)
+    return blocks, mixed
+
+
+def backward_f32(D, chol_linv, chol_linv_reference):
+    """K1 and its plain version in f32 on real blocks that the solve
+    factored with K1: the worst backward errors of both (the plain
+    version's over the blocks it factors too), the largest difference
+    there, and how many blocks the plain version failed."""
+    L, Linv, okb = chol_linv(D)
+    Lr, Linvr, _ = chol_linv_reference(D)
+    torch.cuda.synchronize()
+    assert bool(okb), D.shape        # the solve went on with this factor
+    good = torch.isfinite(Lr).flatten(1).all(dim=1)
+    fact, inv = backward_errors(D, L, Linv)
+    fact_r, inv_r = backward_errors(D[good], Lr[good], Linvr[good])
+    err = float((L[good] - Lr[good]).abs().max())
+    return {"fact": fact, "fact_plain": fact_r, "inv": inv,
+            "inv_plain": inv_r, "max_abs_err": err,
+            "max_rel_err": err / float(Lr[good].abs().max()),
+            "blocks_the_plain_version_failed": int((~good).sum())}
+
+
+def k1_f32_record(blocks, launches, factorizations, chol_linv,
+                  chol_linv_reference, launch_plan):
+    """Phase 12: K1 in f32 on the recorded real blocks (one band
+    factorization, 11 levels): backward errors within 10x of the plain
+    version's where it factors the block too, and the device times summed
+    over the levels."""
+    tot, worst = {}, {}
+    bound_total = 0.0
+    for D in blocks:
+        for k, v in backward_f32(D, chol_linv, chol_linv_reference).items():
+            worst[k] = worst.get(k, 0) + v if k.startswith("blocks") \
+                else max(worst.get(k, 0.0), v)
+        for k, v in k1_times(D, chol_linv, chol_linv_reference, 20).items():
+            tot[k] = tot.get(k, 0.0) + v
+        bound_ms, bound_by = k1_bound_ms(D.shape[0], D.shape[-1], D.dtype)
+        bound_total += bound_ms
+    print(json.dumps({"k1_backward": "quad1000_mixed_f32", **worst}))
+    assert worst["fact"] <= 10 * worst["fact_plain"], worst
+    assert worst["inv"] <= 10 * worst["inv_plain"], worst
+    names = ("kernel", "plain", "library")
+    return {"dtype": "float32", "levels": [D.shape[0] for D in blocks],
+            "n": blocks[0].shape[-1],
+            "plan_344": launch_plan(64, torch.float32, 344)._asdict(),
+            "launches": launches,
+            "launches_per_factorization": launches / factorizations,
+            "max_abs_err": worst["max_abs_err"],
+            "max_rel_err": worst["max_rel_err"],
+            "ms": tot["kernel_device_ms"], "plain_ms": tot["plain_device_ms"],
+            "bound_ms": bound_total, "bound_by": bound_by,
+            "library_ms": tot["library_device_ms"],
+            "event_ms": {k: tot[k + "_event_ms"] for k in names}}
+
+
+def opf_mixed_phase(chol_linv, chol_linv_reference, launch_plan):
+    """Phase 13: opf-1000 with factor_dtype="mixed" in block_diag mode."""
+    from infiniteexamodels_jl_torch.backend import ExaTranscriptionBackend
+    from infiniteexamodels_jl_torch.models import opf
+    from infiniteexamodels_jl_torch.solvers.block_tridiag import (
+        BlockTridiagKKT)
+    status, iters, objective, last32, by = OPF1000_MIXED
+    m = opf(num_supports=1000)
+    backend = ExaTranscriptionBackend(timed_solver(), device="cuda",
+                                      linear_solver="auto", tol=1e-6,
+                                      factor_dtype="mixed", print_level=0)
+    m.set_transformation_backend(backend)
+    backend.build(m)
+    seen = []
+    res, first_s, launches, facts, by_dtype = solve_recorded(
+        backend, m, chol_linv, seen, dtype=torch.float32)
+    kkt = backend.solver.kkt
+    assert type(kkt) is BlockTridiagKKT, type(kkt)
+    assert (kkt.mode, kkt.nb, kkt.bs, kkt.mB) == ("block_diag", 1001, 24,
+                                                  6), (kkt.mode, kkt.nb)
+    # K1 in f32 on the blocks of the last f32 factorization
+    (D,) = seen
+    back = backward_f32(D, chol_linv, chol_linv_reference)
+    assert back["fact"] <= 10 * back["fact_plain"], back
+    assert back["inv"] <= 10 * back["inv_plain"], back
+    assert launches == facts, (launches, facts)
+    assert by_dtype["k1"] == by_dtype["factor"], by_dtype
+    assert by_dtype["k1"].get("float32", 0) > 0, by_dtype
+    assert res.status == "first_order", res.status
+    rel = abs(res.objective - objective) / abs(objective)
+    assert rel <= 1e-6, (res.objective, rel)
+    handover, n32, n64, ms = f32_phase(backend.solver.steps)
+    print(json.dumps({
+        "lowprec": "opf-1000", "factor_dtype": "mixed",
+        "status": res.status, "iterations": res.iter,
+        "objective": res.objective, "objective_rel_err": rel,
+        "f32_until": handover, "f32_steps": n32, "f64_steps": n64,
+        "k1_launches": launches, "by_dtype": by_dtype,
+        "factorizations": facts, "k1_launches_per_factorization":
+        launches / facts,
+        "plan_1001": launch_plan(24, torch.float32, 1001)._asdict(),
+        "k1_f32_last_blocks": back,
+        "first_solve_s": first_s, "ms_per_step": ms,
+        "jax_cpu_record": {"status": status, "iterations": iters,
+                           "objective": objective, "f32_until": last32,
+                           "by": by}}))
+
+
+def ldl_phase():
+    """Phase 14: the host LDL with the model on the card, against the band
+    path, quad-200 at tol 1e-8."""
+    from infiniteexamodels_jl_torch.backend import ExaTranscriptionBackend
+    from infiniteexamodels_jl_torch.models import quad
+    from infiniteexamodels_jl_torch.solvers import IpmSolver
+    from infiniteexamodels_jl_torch.solvers.cpp_ldl import CppLdlKKT
+    out = {}
+    for ls in ("auto", "ldl_cpp"):
+        m = quad(num_supports=200)
+        backend = ExaTranscriptionBackend(IpmSolver, device="cuda",
+                                          linear_solver=ls, tol=1e-8,
+                                          print_level=0)
+        m.set_transformation_backend(backend)
+        backend.build(m)
+        t0 = time.time()
+        res = backend.optimize(m)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        assert res.status == "first_order", (ls, res.status)
+        out[ls] = (res, secs, type(backend.solver.kkt).__name__)
+        if ls == "ldl_cpp":
+            assert type(backend.solver.kkt) is CppLdlKKT
+            assert backend.model.x0.device.type == "cuda"
+    band, ldl = out["auto"][0], out["ldl_cpp"][0]
+    rel = abs(ldl.objective - band.objective) / abs(band.objective)
+    assert rel <= 1e-8, (ldl.objective, band.objective, rel)
+    print(json.dumps({
+        "ldl": "quad-200", "objective_rel_to_band": rel,
+        **{ls: {"kkt": kkt, "iterations": r.iter, "objective": r.objective,
+                "solve_s": secs, "ms_per_iteration": 1e3 * secs / r.iter}
+           for ls, (r, secs, kkt) in out.items()}}))
+
+
+def checkpoint_trace_phase():
+    """Phase 15: checkpoint + resume bit-identical, and a profiler trace
+    naming K1, at quad-200 (f64 band) on the card."""
+    import numpy as np
+    from infiniteexamodels_jl_torch.models import quad
+    from infiniteexamodels_jl_torch.solvers import IpmSolver
+    from infiniteexamodels_jl_torch.solvers.ipm import TRACE_FILE
+    from infiniteexamodels_jl_torch.transcribe import transcribe
+    m, _ = transcribe(quad(num_supports=200), device="cuda")
+
+    def solver():
+        return IpmSolver(m, linear_solver="auto", tol=1e-6, print_level=0)
+    full = solver().solve()
+    assert full.status == "first_order" and full.iter > 4, full.iter
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "chiprun_out") as tmp:
+        ckpt = os.path.join(tmp, "state.npz")
+        s = solver()
+        cut = s.solve(checkpoint_path=ckpt, checkpoint_every=2, max_iter=4)
+        assert cut.iter == 4 and int(s.load_checkpoint(ckpt).iter) == 4
+        res = s.solve(resume_from=ckpt, max_iter=3000)
+        same = bool(np.array_equal(res.solution, full.solution))
+        assert res.status == "first_order" and res.iter == full.iter, (
+            res.status, res.iter, full.iter)
+        assert same, "resumed solve differs from the uninterrupted one"
+        # three iterations are enough to name K1, and keep the trace small
+        t0 = time.time()
+        traced = solver().solve(trace_dir=os.path.join(tmp, "trace"),
+                                max_iter=3)
+        trace_s = time.time() - t0
+        path = os.path.join(tmp, "trace", TRACE_FILE)
+        trace_bytes = os.path.getsize(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k1 = sorted({e["name"] for e in kernels if "chol_linv" in e["name"]})
+    assert traced.iter == 3 and k1, (traced.iter, len(kernels))
+    print(json.dumps({
+        "checkpoint": "quad-200", "iterations": full.iter,
+        "resumed_from_iteration": 4, "resumed_iterations": res.iter,
+        "bit_identical": same, "traced_iterations": traced.iter,
+        "trace_s": trace_s,
+        "trace_bytes": trace_bytes, "trace_kernel_events": len(kernels),
+        "trace_k1_events": sum(1 for e in kernels
+                               if "chol_linv" in e["name"]),
+        "trace_k1_names": k1}))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -480,6 +803,7 @@ def main():
         BlockTridiagKKT)
     from infiniteexamodels_jl_torch.solvers.chol_linv import (
         chol_linv, chol_linv_reference, launch_plan)
+    from infiniteexamodels_jl_torch.utils import host_build
     from infiniteexamodels_jl_torch.utils.cuda_build import build_all
 
     t_start = time.time()
@@ -498,7 +822,10 @@ def main():
     logs = build_all(["chol_linv"])
     for name, log in logs.items():
         print(f"--- nvcc {name}.cu ---\n{log.strip()}")
-    print(json.dumps({"build_s": time.time() - t0}))
+    build_s = time.time() - t0
+    host_build.build("ldl")
+    print(json.dumps({"build_s": build_s,
+                      "host_build_s": time.time() - t0 - build_s}))
 
     # 3. K1 against its plain version
     worst = k1_phase(chol_linv, chol_linv_reference, launch_plan)
@@ -513,8 +840,8 @@ def main():
     m.set_transformation_backend(backend)
     backend.build(m)
     build_s = time.time() - t0
-    res, first_s, launches, factorizations = solve_recorded(backend, m,
-                                                            chol_linv)
+    res, first_s, launches, factorizations, _ = solve_recorded(backend, m,
+                                                               chol_linv)
     kkt = backend.solver.kkt
     assert type(kkt) is BlockTridiagKKT, type(kkt)
     assert kkt.mode == "band" and kkt.nb == 688 and kkt.bs == 64, (
@@ -532,8 +859,8 @@ def main():
     # K1 call: the last 11 are the last band factorization of the solve (a
     # late iteration)
     seen = []
-    res2, warm_s, _, _ = solve_recorded(backend, m, chol_linv, seen,
-                                        keep=len(QUAD1000_LEVELS))
+    res2, warm_s, _, _, _ = solve_recorded(backend, m, chol_linv, seen,
+                                           keep=len(QUAD1000_LEVELS))
     assert tuple(D.shape[0] for D in seen) == QUAD1000_LEVELS, [
         D.shape for D in seen]
     assert res2.status == "first_order" and res2.iter == first_iters
@@ -561,7 +888,19 @@ def main():
     # 7.-10. scenario mode
     record["opf16000"] = scenario_phases(chol_linv, chol_linv_reference)
 
+    # 11.-13. the low-precision step sets
+    blocks, (launches32, facts32) = lowprec_quad_phase(chol_linv)
+    record["f32"] = k1_f32_record(blocks, launches32, facts32, chol_linv,
+                                  chol_linv_reference, launch_plan)
+    del blocks
+    opf_mixed_phase(chol_linv, chol_linv_reference, launch_plan)
+
+    # 14. the host LDL; 15. checkpoint/resume and the profiler trace
+    ldl_phase()
+    checkpoint_trace_phase()
+
     print(json.dumps({"elapsed_s": time.time() - t_start}))
+    print(card_line())        # again here: the head of a long log is cut
     print(json.dumps({"kernels": [record]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

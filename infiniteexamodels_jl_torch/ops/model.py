@@ -151,8 +151,12 @@ class SimdModel:
         return h.digest()
 
     # -- family building block ------------------------------------------
-    def _gather(self, fam, x, theta):
+    def _gather(self, fam, x, theta, dtype=None):
+        """The family's rows of ``x`` and ``theta`` and its fixed values,
+        these cast to ``dtype`` when it is given."""
         vidx, pidx, fdata = self._fam_dev[id(fam)]
+        if dtype is not None:
+            fdata = fdata.to(dtype)
         return x[vidx], theta[pidx], fdata
 
     def _fam_vals(self, fam, x, theta):
@@ -160,15 +164,16 @@ class SimdModel:
             return self._zeros(0)
         return vmap(fam.fn)(*self._gather(fam, x, theta))
 
-    def _fam_grads(self, fam, x, theta):
+    def _fam_grads(self, fam, x, theta, dtype=None):
         if fam.n == 0:
-            return self._zeros(0, fam.kx)
-        return vmap(grad(fam.fn))(*self._gather(fam, x, theta))  # (n, kx)
+            return x.new_zeros((0, fam.kx))
+        return vmap(grad(fam.fn))(*self._gather(fam, x, theta,
+                                                dtype))  # (n, kx)
 
-    def _fam_hess(self, fam, x, theta):
+    def _fam_hess(self, fam, x, theta, dtype=None):
         if fam.n == 0:
-            return self._zeros(0, fam.kx, fam.kx)
-        return vmap(hessian(fam.fn))(*self._gather(fam, x, theta))
+            return x.new_zeros((0, fam.kx, fam.kx))
+        return vmap(hessian(fam.fn))(*self._gather(fam, x, theta, dtype))
 
     def _fam_grad_and_value(self, fam, x, theta):
         if fam.n == 0:
@@ -276,17 +281,26 @@ class SimdModel:
             return torch.zeros(self.nvar, dtype=v.dtype, device=v.device)
         return self._hvp_plan(torch.cat(parts))
 
-    def kkt_vals(self, x, theta, lam, sigma, d):
+    def kkt_vals(self, x, theta, lam, sigma, d, dtype=None):
         """COO values of the condensed-KKT sparse part
         ``sigma*H_f + sum lam_i H_ci + J^T diag(d) J`` on the Hessian
         pattern: per con family the rank-1 ``d_r g_r g_r^T`` has exactly the
-        family's square slot pattern, so it fuses into the same values."""
+        family's square slot pattern, so it fuses into the same values.
+
+        ``dtype`` runs the whole Hessian sweep in that precision: the inputs
+        and the families' fixed values are cast once, and the templates
+        follow their operands (their constants are Python floats, which
+        never promote a tensor).  The low-precision step sets assemble
+        their KKT this way for an f32 factorization."""
+        if dtype is not None:
+            x, theta, lam, d = (a.to(dtype) for a in (x, theta, lam, d))
+            sigma = torch.as_tensor(sigma, dtype=dtype, device=x.device)
         parts = []
         for fam in self.con_fams:
             if fam.kx == 0:
                 continue
-            H = self._fam_hess(fam, x, theta)
-            g = self._fam_grads(fam, x, theta)
+            H = self._fam_hess(fam, x, theta, dtype)
+            g = self._fam_grads(fam, x, theta, dtype)
             w = self._lam_slice(lam, fam)
             dr = self._lam_slice(d, fam)
             M = w[:, None, None] * H + dr[:, None, None] * (
@@ -295,9 +309,9 @@ class SimdModel:
         for fam in self.obj_fams:
             if fam.kx == 0:
                 continue
-            H = self._fam_hess(fam, x, theta)
+            H = self._fam_hess(fam, x, theta, dtype)
             parts.append((sigma * H).reshape(-1))
-        return torch.cat(parts) if parts else self._zeros(0)
+        return torch.cat(parts) if parts else x.new_zeros(0)
 
     # -- COO matvec helpers ----------------------------------------------
     def jprod(self, jvals, v):

@@ -1,4 +1,4 @@
-from .ipm import IpmSolver  # noqa: F401
+from .ipm import IpmSolver, MadIpmSolver  # noqa: F401
 from .kkt import DenseKKT  # noqa: F401
 from .results import (  # noqa: F401
     ExecutionStats, TerminationStatus, ResultStatus,

@@ -146,9 +146,21 @@ def _round_up(x, m):
 class BlockTridiagKKT:
     """Structured condensed-KKT backend.  Build-time analysis happens once;
     per-iteration work is gather + segment-sum assembly + block
-    factorization."""
+    factorization.
 
-    def __init__(self, model, max_block=512, min_blocks=4, max_border=4096):
+    ``factor_dtype=torch.float32`` factors in single precision: the blocks
+    are equilibrated in the assembly's dtype, then cast, so BCR, the K1
+    launches, the Gram-form triangular solves and the border Schur factor
+    all run in f32, and :meth:`solve` hands back the right-hand side's
+    dtype.  ``assemble_dtype`` (a class attribute an instance may set)
+    lowers the Hessian sweep and the block assembly as well; unset, K stays
+    in the model's dtype."""
+
+    assemble_dtype = None
+
+    def __init__(self, model, max_block=512, min_blocks=4, max_border=4096,
+                 factor_dtype=None):
+        self.factor_dtype = factor_dtype
         self.model = model
         self.device = model.device
         n = model.nvar
@@ -327,7 +339,7 @@ class BlockTridiagKKT:
     # ------------------------------------------------------------------
     def assemble(self, x, theta, lam, sigma, d, diag_extra):
         m = self.model
-        vals = m.kkt_vals(x, theta, lam, sigma, d)
+        vals = m.kkt_vals(x, theta, lam, sigma, d, dtype=self.assemble_dtype)
         dt = vals.dtype
         nb, bs, mB = self.nb, self.bs, self.mB
 
@@ -396,6 +408,9 @@ class BlockTridiagKKT:
             C = C * sB[:, None] * sB[None, :]
         else:
             sB = D.new_zeros(0)
+        fdt = self.factor_dtype
+        if fdt is not None and fdt != D.dtype:
+            D, L, B, C = D.to(fdt), L.to(fdt), B.to(fdt), C.to(fdt)
 
         if self.block_diag:
             # batched per-block Cholesky + explicit triangular inverses
@@ -430,23 +445,26 @@ class BlockTridiagKKT:
         return _bcr_solve(levels, root_linv, r)
 
     def solve(self, fac, rhs):
+        """``K^{-1} rhs`` in ``rhs``'s dtype: scaled, cast to the factor's
+        dtype, solved there, cast back and unscaled."""
         tfac, Z, Ls, sT, sB = fac
         nb, bs, mB = self.nb, self.bs, self.mB
-        rT = rhs[self.slot_src].reshape(nb, bs) * self.slot_mask.to(rhs.dtype)
-        rT = rT * sT
+        dt, fdt = rhs.dtype, Z.dtype
+        rT = rhs[self.slot_src].reshape(nb, bs) * self.slot_mask.to(dt)
+        rT = (rT * sT).to(fdt)
         u = self._t_solve(tfac, rT)                   # (nb, bs)
         if mB:
-            rB = rhs[self.b_ids] * sB
+            rB = (rhs[self.b_ids] * sB).to(fdt)
             # x_B = S^{-1} (r_B - Z^T r_T);  x_T = u - Z x_B
             rhs2 = rB - torch.einsum("bij,bi->j", Z, rT)
             z2 = torch.linalg.solve_triangular(Ls, rhs2[:, None], upper=False)
             x2 = torch.linalg.solve_triangular(Ls.T, z2, upper=True)[:, 0]
             x1 = u - torch.einsum("bij,j->bi", Z, x2)
-            x2 = x2 * sB
+            x2 = x2.to(dt) * sB
         else:
             x1 = u
             x2 = rhs.new_zeros(0)
-        x1 = x1 * sT
+        x1 = x1.to(dt) * sT
         return torch.cat([x1.reshape(-1), x2])[self.out_perm]
 
 
@@ -464,6 +482,7 @@ def make_structured_kkt(model, fallback=True, **kwargs):
     if kkt is not None and kkt.usable:
         return kkt
     if fallback:
+        # has no factor_dtype: the low-precision step sets run in f64 here
         return DenseKKT(model)
     raise NotImplementedError(
         "no usable block structure and fallback disabled")

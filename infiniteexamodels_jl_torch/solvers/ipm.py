@@ -23,12 +23,13 @@ Tensors stay on the model's device; the iteration is an eager host loop
 (one ``_step`` per iteration, each inner loop a Python loop that reads its
 condition back from the device).  The host-side decisions that the
 reference takes once per device chunk of 32 iterations (the least-squares
-dual recalc triggers) are taken at the same iterations here.  The options
-that are not ported yet (the low-precision step sets and the host LDL)
-raise ``NotImplementedError``.
+dual recalc triggers, the low-precision step sets' handover to f64, the
+checkpoints) are taken at the same iterations here.
 """
 from __future__ import annotations
 
+import copy
+import os
 import time
 from typing import NamedTuple
 
@@ -43,6 +44,10 @@ RUNNING, FIRST_ORDER, ACCEPTABLE, INFEASIBLE, STALLED, DIVERGED, INVALID = \
     0, 1, 2, 3, 4, 5, 6
 NEED_RESTORATION = 7     # host-visible: enter the feasibility restoration
                          # phase, then resume (never escapes to the user)
+DEMOTE_F32 = 8           # host-visible: the f32 factorization can no longer
+                         # deliver refinable steps; the host hands the
+                         # unchanged state to the f64 step set (never
+                         # escapes to the user)
 
 _STATUS_NAMES = {
     FIRST_ORDER: "first_order",
@@ -54,6 +59,7 @@ _STATUS_NAMES = {
 }
 
 FILTER_SIZE = 128
+TRACE_FILE = "ipm_solve.pt.trace.json"   # solve(trace_dir=...) writes it
 # iterations per host round-trip of the reference's non-verbose loop: the
 # recalc triggers are evaluated at the iterations where it returns to the
 # host, so the two trajectories agree
@@ -141,6 +147,7 @@ DEFAULTS = dict(
     bound_frac=1e-2,
     delta_w_init=1e-4,
     delta_w_min=1e-20,
+    delta_w_max=1e40,        # accepted and, as in the reference, unused
     kappa_w_plus_init=100.0,
     kappa_w_plus=8.0,
     kappa_w_minus=1.0 / 3.0,
@@ -173,7 +180,23 @@ DEFAULTS = dict(
     # acceptance (step rejected above it); None resolves to 1e-6, the value
     # for hosts with native f64 (CPU and CUDA)
     refine_accept=None,
+    # f32 step sets ("mixed", "float32"): the refinement reference is the
+    # f32-assembled K (a ~1e-7-relative model), so the loop is capped
+    # tighter and a miss demotes to f64 instead of bumping delta_w
+    refine_max_f32=4,
+    refine_tol_f32=1e-6,
+    refine_accept_f32=1e-4,
+    # "ir32": the refinement reference is the exact f64 operator, so the
+    # loop (f32-preconditioned CG) runs many rounds at a loose contraction
+    # rate and accepts anything at least as good as a pure-f32 step
+    refine_max_ir=25,
     refine_contract=0.3,     # stop refining when rate exceeds this
+    refine_contract_ir=0.95,
+    # ir32 acceptance clamp(factor*mu, refine_accept_f32, 1e-2) and target
+    # clamp(0.05*factor*mu, refine_tol, refine_tol_cap_ir): both tighten
+    # with the barrier parameter
+    refine_mu_factor_ir=100.0,
+    refine_tol_cap_ir=1e-6,
     # degenerate-endgame limit-cycle escape (see _step)
     acceptable_visit_tol_factor=1e3,
     acceptable_visit_limit=25,
@@ -193,8 +216,18 @@ DEFAULTS = dict(
     print_level=5,
     max_wall_time=1e20,
     mu_min_fraction=0.1,     # mu floor = tol * this
-    factor_dtype="float64",  # only "float64" is ported
-    linear_solver="dense",   # "dense" | "block_tridiag" | "auto"
+    # "float64": f64 throughout.  "float32": assembly and factorization
+    # in f32 until a refinement failure demotes to the f64 step set.
+    # "mixed": like "float32" while mu > mu_switch_f32, then f64.  "ir32":
+    # f32 assembly and factorization refined against the exact f64
+    # operator, handing over at mu_switch_ir (0: only on demotion).  The
+    # f32 sets need the structured KKT; on the dense one they run in f64.
+    factor_dtype="float64",
+    mu_switch_f32=1e-4,
+    mu_switch_ir=0.0,
+    # "dense" | "block_tridiag" | "auto" | "ldl_cpp" (alias "ma27": the
+    # host sparse LDL, the role MA27 plays under Ipopt in the reference)
+    linear_solver="dense",
     # feasibility restoration (Ipopt §3.3 role): Levenberg-Marquardt
     # Gauss-Newton descent on the (proximally damped) constraint violation,
     # reusing the condensed-KKT machinery
@@ -207,13 +240,6 @@ DEFAULTS = dict(
     # least-squares stationarity fit (Ipopt least_square_init_duals role)
     dual_init="zero",
 )
-
-# options whose non-default values select code paths not ported yet
-_NOT_PORTED = {
-    "factor_dtype": lambda v: v != "float64",
-    "linear_solver": lambda v: v in ("ldl_cpp", "ma27"),
-}
-
 
 def _amax0(a):
     """max(a) with initial 0 (NaN propagates)."""
@@ -259,21 +285,38 @@ class IpmSolver:
                 from .block_tridiag import make_structured_kkt
 
                 kkt = make_structured_kkt(model, fallback=(kind == "auto"))
+            elif kind in ("ldl_cpp", "ma27"):
+                from .cpp_ldl import CppLdlKKT
+
+                kkt = CppLdlKKT(model)
             else:
                 raise ValueError(f"unknown linear_solver {kind!r}")
         self.kkt = kkt
+        self.kkt32 = self._low_precision_view()
         self._consts_cache = None
         self.results = None
+        self.host_returns = []   # iterations of the last solve's host returns
 
     def set_options(self, **options):
         for k, v in options.items():
             if k not in DEFAULTS:
                 raise ValueError(f"unknown IPM option {k!r}")
-            bad = _NOT_PORTED.get(k)
-            if bad is not None and bad(v):
-                raise NotImplementedError(
-                    f"IPM option {k}={v!r} is not ported")
             self.opts[k] = v
+        if "factor_dtype" in options and hasattr(self, "kkt"):
+            self.kkt32 = self._low_precision_view()
+
+    def _low_precision_view(self):
+        """The low-precision step sets' second view of the structured KKT
+        (sharing its structure analysis) that assembles and factors in f32,
+        or None (f64 step set, or a KKT without ``factor_dtype``: the dense
+        one and the host LDL, where every step set runs in f64, as in the
+        reference).  The f64 view stays for the handover."""
+        if (self.opts["factor_dtype"] not in ("mixed", "float32", "ir32")
+                or not hasattr(self.kkt, "factor_dtype")):
+            return None
+        kkt32 = copy.copy(self.kkt)
+        kkt32.factor_dtype = kkt32.assemble_dtype = torch.float32
+        return kkt32
 
     def reset(self, model=None):
         """Prepare for a re-solve; model shape must be unchanged."""
@@ -684,11 +727,79 @@ class IpmSolver:
         def pulled(r):
             return r if prox_pull is None else r - prox_pull
 
-        refine_tol = o["refine_tol"]
-        refine_accept = o["refine_accept"]
-        refine_max = o["refine_max"]
-        refine_contract = o["refine_contract"]
+        # the f32 step sets demote to the f64 one on a refinement failure
+        # instead of walking the regularization ladder: a precision failure
+        # is not an inertia failure, and bumping delta_w for it damps the
+        # Newton direction into a crawl.  "mixed"/"float32" refine against
+        # their own f32 K and are held to the f32 thresholds; "ir32" refines
+        # matrix-free against the exact f64 operator, aims at the f64 target
+        # and accepts a step at least as good as a pure-f32 one
+        can_demote = kkt is self.kkt32 and kkt is not None
+        ir_ref = can_demote and o["factor_dtype"] == "ir32"
+        sfx = "_f32" if can_demote and not ir_ref else ""
+        refine_tol = o["refine_tol" + sfx]
+        refine_accept = o["refine_accept_f32" if ir_ref
+                          else "refine_accept" + sfx]
+        refine_max = o["refine_max_ir" if ir_ref else "refine_max" + sfx]
+        refine_contract = o["refine_contract_ir" if ir_ref
+                            else "refine_contract"]
+        if ir_ref:
+            # both tighten with this iteration's mu: the acceptance floored
+            # at f32 quality, the target down to refine_tol
+            refine_accept = torch.clamp(o["refine_mu_factor_ir"] * mu,
+                                        refine_accept, 1e-2)
+            refine_tol = torch.clamp(0.05 * o["refine_mu_factor_ir"] * mu,
+                                     refine_tol, o["refine_tol_cap_ir"])
+        # (the reference's f64 step set also has a branch for f32
+        # refinement residuals on the TPU, where f64 is emulated; it is
+        # TPU-only and not ported)
+        exact = getattr(kkt, "exact_solve", False)
         tiny = torch.finfo(dt).tiny
+
+        def refine_pcg(fac, rhs, dx, rhs_norm, D, diag_extra):
+            """ir32: CG on the exact f64 operator, preconditioned by the f32
+            factorization; returns the best iterate and its relative
+            residual."""
+            lam_s = st.y * consts["sc"]
+
+            def Kmv(w):
+                # matrix-free: one Hessian-vector sweep, two COO J products
+                # and the condensed diagonal
+                return (m.hvp_lag(st.x, consts["theta"], lam_s,
+                                  consts["sf"] * m.sense, w)
+                        + m.jtprod(jvals, D * m.jprod(jvals, w))
+                        + diag_extra * w)
+
+            r = rhs - Kmv(dx)
+            z = kkt.solve(fac, r)
+            p, rz = z, torch.dot(r, z)
+            x = best_x = dx
+            best_rr = torch.linalg.norm(r) / rhs_norm
+            prev_best = torch.full((), inf, dtype=dt, device=dev)
+            i = 0
+            while i < refine_max and bool(
+                    (best_rr > refine_tol)
+                    & (best_rr < refine_contract * prev_best)):
+                Kp = Kmv(p)
+                pKp = torch.dot(p, Kp)
+                # non-SPD curvature or breakdown freezes the iterate (the
+                # loop then stops on stalled progress)
+                good = pKp > 0
+                alpha = torch.where(good, rz / torch.where(good, pKp, 1.0),
+                                    0.0)
+                x = x + alpha * p
+                r = r - alpha * Kp
+                z = kkt.solve(fac, r)
+                rz_new = torch.dot(r, z)
+                beta = torch.where(good & (rz != 0), rz_new / rz, 0.0)
+                p, rz = z + beta * p, rz_new
+                rr = torch.linalg.norm(r) / rhs_norm
+                better = rr < best_rr
+                prev_best = best_rr
+                best_x = torch.where(better, x, best_x)
+                best_rr = torch.where(better, rr, best_rr)
+                i += 1
+            return best_x, best_rr
 
         def make_step(delta_w, delta_c):
             inv_ss = 1.0 / (sigma_s + delta_w)
@@ -704,30 +815,42 @@ class IpmSolver:
             rhs2 = pulled(rp + inv_ss * rs)
             rhs = -(rx + m.jtprod(jvals, D * rhs2))
             dx = kkt.solve(fac, rhs)
-            # residual-driven iterative refinement of the CONDENSED solve:
-            # exits early when the relative residual is small or stops
-            # contracting; a final residual above refine_accept marks the
-            # step failed so the regularization ladder escalates
-            rhs_norm = torch.linalg.norm(rhs) + tiny
-            resid = rhs - kkt.matvec(K, dx)
-            prev = torch.full((), inf, dtype=dt, device=dev)
-            i = 0
-            while True:
-                rr = torch.linalg.norm(resid) / rhs_norm
-                if not (i < refine_max and bool(
-                        (rr > refine_tol) & (rr < refine_contract * prev))):
-                    break
-                dxn = dx + kkt.solve(fac, resid)
-                residn = rhs - kkt.matvec(K, dxn)
-                rrn = torch.linalg.norm(residn) / rhs_norm
-                # keep the better iterate if refinement diverges
-                worse = rrn > rr
-                dx = torch.where(worse, dx, dxn)
-                resid = torch.where(worse, resid, residn)
-                prev = rr
-                i += 1
-            rr_final = torch.linalg.norm(resid) / rhs_norm
-            ref_ok = rr_final <= refine_accept
+            if exact:
+                # an exact backend (the host LDL) needs no refinement
+                rr_final = zero
+                ref_ok = torch.ones((), dtype=torch.bool, device=dev)
+            elif ir_ref:
+                dx, rr_final = refine_pcg(
+                    fac, rhs, dx, torch.linalg.norm(rhs) + tiny, D,
+                    diag_extra)
+                ref_ok = rr_final <= refine_accept
+            else:
+                # residual-driven iterative refinement of the CONDENSED
+                # solve: exits early when the relative residual is small or
+                # stops contracting; a final residual above refine_accept
+                # marks the step failed so the regularization ladder
+                # escalates (or the f32 step set demotes)
+                rhs_norm = torch.linalg.norm(rhs) + tiny
+                resid = rhs - kkt.matvec(K, dx)
+                prev = torch.full((), inf, dtype=dt, device=dev)
+                i = 0
+                while True:
+                    rr = torch.linalg.norm(resid) / rhs_norm
+                    if not (i < refine_max and bool(
+                            (rr > refine_tol)
+                            & (rr < refine_contract * prev))):
+                        break
+                    dxn = dx + kkt.solve(fac, resid)
+                    residn = rhs - kkt.matvec(K, dxn)
+                    rrn = torch.linalg.norm(residn) / rhs_norm
+                    # keep the better iterate if refinement diverges
+                    worse = rrn > rr
+                    dx = torch.where(worse, dx, dxn)
+                    resid = torch.where(worse, resid, residn)
+                    prev = rr
+                    i += 1
+                rr_final = torch.linalg.norm(resid) / rhs_norm
+                ref_ok = rr_final <= refine_accept
             dy = D * (m.jprod(jvals, dx) + rhs2)
             ds = inv_ss * (dy - rs)
             ok = ok & torch.isfinite(dx).all() & \
@@ -759,16 +882,26 @@ class IpmSolver:
         ok_f = torch.zeros((), dtype=torch.bool, device=dev)
         fac_f = None
         tries = 0
-        while tries < o["max_reg_tries"] and not bool(ok_f):
+        # a precision failure of an f32 step set (factorization fine,
+        # refinement short of its acceptance) ends the ladder: the host
+        # hands the state to the f64 step set
+        need_demote = ladder_done = ok_f
+        while tries < o["max_reg_tries"] and not bool(ladder_done):
             if tries == 0:
                 dw_new = first_dw
             else:
                 dw_new = torch.where(dw == 0.0, bump_from_zero, dw * kw_plus)
             dx, ds, dy, fac_ok, ref_ok, rr_f, fac_f = make_step(
                 dw_new, delta_c_floor)
-            ok_f = fac_ok & ref_ok
+            ok_f = ladder_done = fac_ok & ref_ok
+            if can_demote:
+                need_demote = fac_ok & ~ref_ok
+                ladder_done = ok_f | need_demote
             dw = dw_used = dw_new
             tries += 1
+        if can_demote:
+            status = torch.where((status == RUNNING) & need_demote,
+                                 DEMOTE_F32, status)
 
         def ftb_primal(dza):
             """Fraction-to-boundary step cap for a primal direction."""
@@ -915,6 +1048,16 @@ class IpmSolver:
         # target, reset the filter, and try again; repeated failures enter
         # the restoration phase (or stall out)
         failed = ~accepted
+        if can_demote:
+            # a repeated line-search failure in an f32 step set is more
+            # likely a precision-poisoned direction than an unusable Newton
+            # step: hand the unchanged state to the f64 step set instead of
+            # resetting the multipliers.  The first failure gets the f64
+            # recovery (iteration 1 often fails from the pushed start)
+            demote_ls = failed & (st.ls_fail_count >= 1)
+            status = torch.where((status == RUNNING) & demote_ls,
+                                 DEMOTE_F32, status)
+            failed = failed & ~demote_ls
         alpha = torch.where(failed, 0.0, alpha)
         cap = o["y_reset_cap"]
         # reheat the barrier on failure
@@ -1205,7 +1348,7 @@ class IpmSolver:
 
         K = self.kkt.assemble(x, theta, lam, sig, d, de)
         fac, _ = self.kkt.factor(K)
-        return {
+        prof = {
             "eval_obj_grad": timed(lambda: m.obj_and_grad(x, theta)),
             "eval_cons_jac": timed(lambda: m.cons_and_jac(x, theta)),
             "kkt_vals": timed(lambda: m.kkt_vals(x, theta, lam, sig, d)),
@@ -1216,15 +1359,79 @@ class IpmSolver:
             "matvec": timed(lambda: self.kkt.matvec(K, rhs)),
             "full_step": timed(lambda: self._step(state, consts)),
         }
+        k32 = self.kkt32
+        if k32 is not None:
+            # the f32 step set's phases: its Hessian sweep, and the f32
+            # factorization and solve of the same (f64-assembled) K
+            fac32, _ = k32.factor(K)
+            prof.update({
+                "kkt_vals_f32": timed(lambda: m.kkt_vals(
+                    x, theta, lam, sig, d, dtype=k32.assemble_dtype)),
+                "factor_f32": timed(lambda: k32.factor(K)),
+                "solve_f32": timed(lambda: k32.solve(fac32, rhs)),
+                "full_step_f32": timed(
+                    lambda: self._step(state, consts, k32)),
+            })
+        return prof
+
+    # ------------------------------------------------------------------
+    # checkpoint / resume: the state as numpy arrays under the reference's
+    # field names and dtypes, so a checkpoint of either package resumes in
+    # the other
+    # ------------------------------------------------------------------
+    def save_checkpoint(self, path, state):
+        from ..interop import state_to_numpy
+
+        np.savez(path, **state_to_numpy(state))
+
+    def load_checkpoint(self, path):
+        from ..interop import state_from_numpy
+
+        with np.load(path) as data:
+            vals = {k: data[k] for k in data.files}
+        # checkpoints written before a field existed load with its default
+        vals.setdefault("log_rr", np.zeros(()))
+        vals.setdefault("acc_visits", np.zeros((), np.int32))
+        vals.setdefault("zero_fail_streak", np.zeros((), np.int32))
+        for k in ("best_E", "best_inf_pr", "best_inf_du", "best_fobj",
+                  "feas_fobj", "log_E0"):
+            vals.setdefault(k, np.asarray(np.inf))
+        for k in ("x", "s", "y", "zl", "zu"):
+            vals.setdefault("best_" + k, vals[k])
+        return state_from_numpy(vals, self.model.device)
 
     # ------------------------------------------------------------------
     # host loop
     # ------------------------------------------------------------------
-    def solve(self, x0=None, y0=None, stats=None, zl0=None, zu0=None,
-              **options):
+    def solve(self, x0=None, y0=None, stats=None, resume_from=None,
+              checkpoint_path=None, checkpoint_every=0, trace_dir=None,
+              zl0=None, zu0=None, **options):
         """Run the IPM from ``x0``/``y0`` (default: the model's start
         values); ``zl0``/``zu0`` are user-scale variable bound duals for a
-        warm start."""
+        warm start.  ``resume_from`` continues from a checkpoint, which
+        ``checkpoint_path`` is rewritten with every ``checkpoint_every``
+        iterations (at host returns).  With ``trace_dir``, the whole solve
+        runs under ``torch.profiler`` (the CPU, and the card's kernels on
+        CUDA) and its Chrome trace is written into that directory.
+        ``stats`` is accepted for the reference's signature and unused."""
+        args = (x0, y0, resume_from, checkpoint_path, checkpoint_every,
+                zl0, zu0)
+        if trace_dir is None:
+            return self._solve_impl(*args, **options)
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if self.model.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        with profile(activities=acts) as prof:
+            res = self._solve_impl(*args, **options)
+        os.makedirs(trace_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(str(trace_dir),
+                                              TRACE_FILE))
+        return res
+
+    def _solve_impl(self, x0, y0, resume_from, checkpoint_path,
+                    checkpoint_every, zl0, zu0, **options):
         if options:
             self.set_options(**options)
         o = self.opts
@@ -1239,7 +1446,9 @@ class IpmSolver:
                                                       device=dev)
         # internal y is for the scaled problem: y_scaled = y_user*sf/sc*sense
         y0s = y0 * m.sense * consts["sf"] / consts["sc"]
-        if zl0 is not None or zu0 is not None:
+        if resume_from is not None:
+            st = self.load_checkpoint(resume_from)
+        elif zl0 is not None or zu0 is not None:
             # warm bound duals (Ipopt warm_start_init_point role): the
             # slack halves are recovered from y0 through the s-row
             # stationarity y = zu_s - zl_s of this solver's KKT
@@ -1254,7 +1463,7 @@ class IpmSolver:
             st = self._init_state(x0, y0s, consts, zl_full, zu_full)
         else:
             st = self._init_state(x0, y0s, consts)
-        if o["dual_init"] == "lsq":
+        if o["dual_init"] == "lsq" and resume_from is None:
             y_lsq = self._lsq_duals(st, consts)
             st = st._replace(y=y_lsq, best_y=y_lsq)
         timers = {"build": np.nan, "step_total": 0.0, "first_chunk": np.nan}
@@ -1268,20 +1477,53 @@ class IpmSolver:
         prev_chunk_obj = None      # recalc_y_stall objective-stall gate
         chunk = 1 if verbose else HOST_CHUNK
         chunk_end = min(chunk, o["max_iter"])
+        # the f32 step set runs while the mu last seen at a host return is
+        # above the switch ("float32": until it demotes; "ir32": its own
+        # switch, 0 by default); a step after which mu falls to the switch
+        # returns to the host, as the reference's f32 chunk exits there
+        if o["factor_dtype"] == "float32":
+            mu_switch = 0.0
+        elif o["factor_dtype"] == "ir32":
+            mu_switch = o["mu_switch_ir"]
+        else:
+            mu_switch = o["mu_switch_f32"]
+        f32_demoted = False
+        mu_host = float(st.mu)
+        self.host_returns = []
+        code, st_iter = int(st.status), int(st.iter)
         while it < o["max_iter"]:
-            t0 = time.time()
-            st = self._step(st, consts)
-            code = int(st.status)
-            it = int(st.iter)
-            dt_step = time.time() - t0
-            timers["step_total"] += dt_step
-            if np.isnan(timers["first_chunk"]):
-                timers["first_chunk"] = dt_step
+            use32 = (self.kkt32 is not None and not f32_demoted
+                     and mu_host > mu_switch)
+            # the reference's chunk steps only a RUNNING state below its
+            # cap (a resumed state may already be at it); its one-step
+            # verbose loop steps regardless
+            if chunk == 1 or (code == RUNNING and st_iter < chunk_end):
+                t0 = time.time()
+                st = self._step(st, consts, self.kkt32 if use32 else None)
+                code, st_iter = int(st.status), int(st.iter)
+                dt_step = time.time() - t0
+                timers["step_total"] += dt_step
+                if np.isnan(timers["first_chunk"]):
+                    timers["first_chunk"] = dt_step
+            it = st_iter
             # the reference's device loop returns to the host when a step
             # leaves RUNNING or the chunk's iterations are done
-            at_host = code != RUNNING or it >= chunk_end
+            at_host = (code != RUNNING or it >= chunk_end
+                       or (use32 and float(st.mu) <= mu_switch))
             if at_host:
                 chunk_end = min(it + chunk, o["max_iter"])
+                mu_host = float(st.mu)
+                self.host_returns.append(it)
+            if code == DEMOTE_F32:
+                # precision handover: the same state, f64 step set from here
+                f32_demoted = True
+                code = RUNNING
+                st = st._replace(status=_i32(RUNNING, dev))
+                if verbose:
+                    print(f"{it:4d}  -- f32 factorization demoted to f64 "
+                          f"(mu={float(st.mu):.1e}, rr={float(st.log_rr):.1e},"
+                          f" ls={int(st.log_ls)}) --")
+                continue
             if code == NEED_RESTORATION:
                 if resto_entries < o["resto_max_entries"]:
                     resto_entries += 1
@@ -1290,6 +1532,7 @@ class IpmSolver:
                               f"(entry {resto_entries}) --")
                     t0 = time.time()
                     st = self._restore(st, consts)
+                    code = RUNNING
                     timers["step_total"] += time.time() - t0
                     continue
                 code = STALLED
@@ -1328,6 +1571,10 @@ class IpmSolver:
                     if verbose:
                         print(f"{it:4d}  -- least-squares dual recalc "
                               f"(du={float(st.log_inf_du):.1e}) --")
+            if at_host and checkpoint_path and checkpoint_every and \
+                    it // checkpoint_every != \
+                    (it - chunk) // checkpoint_every:
+                self.save_checkpoint(checkpoint_path, st)
             if code != RUNNING:
                 status = _STATUS_NAMES[code]
                 break
@@ -1387,3 +1634,12 @@ class IpmSolver:
         self.results = res
         return res
 
+
+class MadIpmSolver(IpmSolver):
+    """The MadNLP-flavoured alias (the reference's GPU solver entry point,
+    ext/InfiniteExaModelsMadNLP.jl): the same algorithm with the structured
+    KKT by default."""
+
+    def __init__(self, model, kkt=None, **options):
+        options.setdefault("linear_solver", "auto")
+        super().__init__(model, kkt=kkt, **options)

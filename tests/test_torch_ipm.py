@@ -22,6 +22,9 @@ from infiniteexamodels_jl_torch.transcribe import transcribe as ttranscribe
 
 QUAD12 = 574.5678886441765          # tests/test_models.py ORACLES
 HOVERCRAFT41 = 0.04245763849025232
+# the port's f64 solve of quad-12 at tol 1e-8 (held below; the f32 step
+# sets in test_torch_lowprec.py are held to it)
+QUAD12_F64 = 574.5678887587922
 
 
 @pytest.fixture(scope="module")
@@ -60,6 +63,7 @@ def test_quad12_band_oracle_and_jax_iterations(jax_quad12_states):
     assert m.backend.solver.kkt.mode == "band"
     assert res.status == "first_order"
     assert m.objective_value() == pytest.approx(QUAD12, abs=1e-6)
+    assert m.objective_value() == pytest.approx(QUAD12_F64, rel=1e-12)
     assert res.iter == int(final["iter"])
     for v in m.infinite_vars[:9]:
         assert np.asarray(m.value(v))[0] == pytest.approx(0.0, abs=1e-6)
@@ -177,9 +181,18 @@ def test_hot_parameter_update_resolve():
     dict(factor_dtype="mixed"), dict(linear_solver="ldl_cpp"),
 ])
 def test_options_not_ported_raise(option):
+    """The two options that raised ``NotImplementedError`` while they were
+    not ported now build their solver, as in the JAX package: "mixed" on
+    the (default) dense KKT keeps the f64 step set alone; "ldl_cpp" builds
+    the host LDL."""
+    from infiniteexamodels_jl_torch.solvers.cpp_ldl import CppLdlKKT
+    from infiniteexamodels_jl_torch.solvers.kkt import DenseKKT
+
     tm, _ = ttranscribe(tmodels.hovercraft(num_supports=11), device="cpu")
-    with pytest.raises(NotImplementedError, match=next(iter(option))):
-        IpmSolver(tm, **option)
+    s = IpmSolver(tm, **option)
+    assert s.kkt32 is None
+    want = CppLdlKKT if "linear_solver" in option else DenseKKT
+    assert type(s.kkt) is want
 
 
 def test_jax_state_round_trip():

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX
 package, and its entry points default to the CUDA card instead of falling
 back to the CPU."""
+import json
 import pathlib
 import re
 import subprocess
@@ -13,6 +14,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "infiniteexamodels_jl_torch"
 
 _SCRIPT = r"""
+import json
 import sys
 sys.modules["jax"] = None              # any import of jax now fails
 sys.modules["jaxlib"] = None
@@ -21,30 +23,49 @@ from infiniteexamodels_jl_torch.models import hovercraft
 from infiniteexamodels_jl_torch.solvers import IpmSolver
 import infiniteexamodels_jl_torch.interop                  # noqa: F401
 import infiniteexamodels_jl_torch.solvers.block_tridiag    # noqa: F401
-m = hovercraft(num_supports=41)
-m.set_transformation_backend(ExaTranscriptionBackend(IpmSolver, device="cpu"))
-m.set_silent()
-res = m.optimize()
+import infiniteexamodels_jl_torch.solvers.cpp_ldl          # noqa: F401
+out = []
+for opts in ({}, {"linear_solver": "auto", "factor_dtype": "mixed"},
+             {"linear_solver": "ldl_cpp"}):
+    m = hovercraft(num_supports=41)
+    m.set_transformation_backend(ExaTranscriptionBackend(
+        IpmSolver, device="cpu", **opts))
+    m.set_silent()
+    res = m.optimize()
+    out.append(f"{res.status},{m.objective_value()!r}")
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "infiniteexamodels_jl_tpu")
              and sys.modules[k] is not None)
-print(res.status, repr(m.objective_value()), bad)
+# the shared libraries this process loaded (the host LDL among them)
+with open("/proc/self/maps") as f:
+    libs = sorted({ln.split()[-1] for ln in f if ".so" in ln})
+print(json.dumps({"solves": out, "bad": bad,
+                  "native": [p for p in libs if "/native/" in p],
+                  "built": [p for p in libs
+                            if "/infiniteexamodels_jl_torch/_build/" in p]}))
 """
 
 
 def test_port_imports_and_solves_without_jax():
+    """hovercraft-41 solved three ways without JAX: the dense KKT, the
+    "mixed" step set (its band KKT view factored in f32) and the host LDL,
+    whose library is the port's own build, never the one in ``native/``."""
     out = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    status, obj, bad = out.stdout.strip().splitlines()[-1].split(" ", 2)
-    assert status == "first_order"
-    assert abs(float(obj) - 0.04245763849025232) <= 1e-6
-    assert bad == "[]"
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert len(got["solves"]) == 3
+    for solve in got["solves"]:
+        status, obj = solve.split(",")
+        assert status == "first_order"
+        assert abs(float(obj) - 0.04245763849025232) <= 1e-6
+    assert got["bad"] == [] and got["native"] == []
+    assert any("/libldl-" in p for p in got["built"])
 
 
 def test_no_port_file_names_jax_or_the_jax_package():
     files = [p for p in PORT.rglob("*") if p.is_file()
-             and p.suffix in (".py", ".cu", ".cuh", ".h")]
+             and p.suffix in (".py", ".cu", ".cuh", ".h", ".cpp")]
     assert len(files) > 20
     word = re.compile(r"\bjax\b|\bjnp\b|infiniteexamodels_jl_tpu",
                       re.IGNORECASE)
