@@ -65,7 +65,24 @@ Phases (any failure raises and the script exits non-zero):
 15. checkpoint and trace at quad-200 (f64 band): a solve cut at iteration
     4 and resumed ends bit-identical to an uninterrupted one, in as many
     iterations; a solve with ``trace_dir`` (three iterations) exports a
-    trace that names K1 among its CUDA kernels.
+    trace that names K1 among its CUDA kernels;
+16. the multi-device backends: 4 ranks (processes) sharing the card over
+    gloo (NCCL refuses two ranks on one GPU), each through
+    ``ExaTranscriptionBackend(IpmSolver, mesh=global_mesh(),
+    linear_solver="auto", tol=1e-6)`` at full width: farmer-1000 through
+    ``ShardedScenarioKKT`` (1,000 blocks of 8, 250 a rank, border 3) and
+    quad-1000 through ``ShardedBandKKT`` (688 band blocks of 64 padded to
+    1,024, 256 a rank).  Both ``first_order`` at the records; K1 launched
+    in every factorization on every rank (1 and 11 a factorization,
+    counted per rank); the final x bit-identical on every rank (hashes
+    all-gathered).  Per case: iterations beside the single-card phases'
+    and the JAX CPU record, first and warm solve seconds, K1 launches and
+    build seconds per rank, the collectives of one factorization (count
+    and elements by kind), the ops gloo staged through host memory, peak
+    device memory per rank; K1 against its plain version on rank 0's
+    blocks of its last factorization (the ``sharded`` record of the
+    kernels line).  The ranks share one card and each drives its own host
+    process, so their times say nothing of scaling.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  The script exits non-zero and prints no
@@ -791,6 +808,238 @@ def checkpoint_trace_phase():
         "trace_k1_names": k1}))
 
 
+# phase 16: the multi-device backends, 4 ranks sharing the one card
+MESH_RANKS = 4
+MESH_TIMEOUT_S = 120        # every collective of a rank gives up after this
+# case: (builder, kwargs, kkt class, nb, nb_loc, border, objective record,
+# single-card iterations (phases 4 and 9), JAX CPU iterations,
+# K1 launches per factorization on every rank)
+MESH_CASES = {
+    "farmer-1000": ("farmer", dict(num_scenarios=1000), "ShardedScenarioKKT",
+                    1000, 250, 3, FARMER1000[0], 38, FARMER1000[1], 1),
+    # the band of 688 blocks, padded to 4 segments of 2^8: 8 local BCR
+    # levels, then the 4-block tail (2 levels and its root) on every rank
+    "quad-1000": ("quad", dict(num_supports=1000), "ShardedBandKKT", 1024,
+                  256, 0, QUAD1000_OBJECTIVE, 10, 10, 8 + 2 + 1),
+}
+
+
+def mesh_rank(rank, size, tmp):
+    """One rank of phase 16 (a process of its own, spawned): every case
+    through ``ExaTranscriptionBackend(IpmSolver, mesh=global_mesh())``."""
+    import hashlib
+    import pickle
+
+    sys.path.insert(0, str(ROOT))
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # the ranks share the host's cores
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // size))
+    from infiniteexamodels_jl_torch import models
+    from infiniteexamodels_jl_torch.backend import ExaTranscriptionBackend
+    from infiniteexamodels_jl_torch.parallel.distributed import (
+        global_mesh, initialize)
+    from infiniteexamodels_jl_torch.solvers import (band_shard,
+                                                    block_tridiag,
+                                                    scenario_shard)
+    from infiniteexamodels_jl_torch.solvers import IpmSolver
+    from infiniteexamodels_jl_torch.solvers.chol_linv import chol_linv
+
+    initialize(backend="gloo", init_method=f"file://{tmp}/rendezvous",
+               world_size=size, rank=rank, timeout=MESH_TIMEOUT_S)
+    mesh = global_mesh()
+    assert mesh.device == torch.device("cuda:0"), mesh.device
+    # the blocks of every K1 call (each sharded module calls its own
+    # import of block_tridiag._chol_linv; the replicated tail calls
+    # block_tridiag's) and the factorizations, counted here
+    k1 = block_tridiag._chol_linv
+    calls, facts = [], [0]
+
+    def recording(D):
+        calls.append(D.detach().clone())
+        del calls[:-32]
+        recording.n += 1
+        return k1(D)
+
+    def counted(cls):
+        factor = cls.factor
+
+        def f(self, K):
+            facts[0] += 1
+            if facts[0] == 1:
+                with mesh.recording() as log:
+                    out = factor(self, K)
+                f.log = list(log)
+                return out
+            return factor(self, K)
+        return f
+
+    for mod in (block_tridiag, scenario_shard, band_shard):
+        mod._chol_linv = recording
+    for cls in (scenario_shard.ShardedScenarioKKT, band_shard.ShardedBandKKT):
+        cls.factor = counted(cls)
+    out = {"staged": sorted(mesh.staged), "backend": mesh.backend}
+    for tag, case in MESH_CASES.items():
+        name, kw = case[0], case[1]
+        gc.collect()
+        torch.cuda.synchronize()
+        baseline = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        m = getattr(models, name)(**kw)
+        backend = ExaTranscriptionBackend(IpmSolver, mesh=mesh,
+                                          linear_solver="auto", tol=1e-6,
+                                          print_level=0)
+        m.set_transformation_backend(backend)
+        backend.build(m)
+        build_s = time.time() - t0
+        rec = {}
+        for run in ("first", "warm"):
+            recording.n = facts[0] = chol_linv.launches = 0
+            mesh.barrier()
+            t0 = time.time()
+            res = backend.optimize(m)
+            torch.cuda.synchronize()
+            rec[run] = dict(s=time.time() - t0, iter=res.iter,
+                            status=res.status, objective=res.objective,
+                            launches=chol_linv.launches,
+                            factorizations=facts[0],
+                            calls=recording.n)
+        kkt = backend.solver.kkt
+        # the final x, hashed; the hashes of every rank, all-gathered
+        x = torch.as_tensor(res.solution)
+        h = hashlib.sha256(x.numpy().tobytes()).digest()[:8]
+        mine = torch.tensor([int.from_bytes(h, "little", signed=True)],
+                            dtype=torch.int64, device=mesh.device)
+        hashes = mesh.all_gather(mine).reshape(-1).tolist()
+        # the blocks of the last factorization (this rank's K1 calls)
+        per = rec["warm"]["launches"] // max(rec["warm"]["factorizations"],
+                                             1)
+        last = calls[-per:] if per else []
+        if rank == 0:
+            torch.save([D.cpu() for D in last], f"{tmp}/{tag}-blocks.pt")
+        rec.update(kkt=type(kkt).__name__,
+                   aligned=bool(getattr(kkt, "aligned", False)),
+                   nb=kkt.nb, nb_loc=getattr(kkt, "nb_loc", None),
+                   bs=kkt.bs, mB=kkt.mB, build_s=build_s,
+                   shapes=[list(D.shape) for D in last],
+                   factor_collectives=type(kkt).factor.log,
+                   hashes=hashes,
+                   peak_memory_above_baseline_bytes=(
+                       torch.cuda.max_memory_allocated() - baseline))
+        out[tag] = rec
+        del m, backend, kkt
+    with open(f"{tmp}/rank{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+    import torch.distributed as dist
+    dist.destroy_process_group()
+
+
+def collective_totals(log):
+    """{kind: [count, elements]} of a recorded collective log."""
+    tot = {}
+    for kind, el in log:
+        c = tot.setdefault(kind, [0, 0])
+        c[0] += 1
+        c[1] += el
+    return tot
+
+
+def mesh_phase(chol_linv, chol_linv_reference, launch_plan):
+    """Phase 16: farmer-1000 and quad-1000 on 4 ranks sharing the card
+    over gloo; returns K1's record on the sharded paths."""
+    import pickle
+    import torch.multiprocessing as mp
+
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.spawn(mesh_rank, args=(MESH_RANKS, tmp), nprocs=MESH_RANKS,
+                       join=False)
+        deadline = time.time() + 600
+        try:
+            # a failing rank raises here; a hung one is killed at the limit
+            while not ctx.join(timeout=5):
+                if time.time() > deadline:
+                    raise RuntimeError("phase 16: ranks passed 600 s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        ranks = []
+        for r in range(MESH_RANKS):
+            with open(f"{tmp}/rank{r}.pkl", "rb") as f:
+                ranks.append(pickle.load(f))
+        blocks = {tag: torch.load(f"{tmp}/{tag}-blocks.pt")
+                  for tag in MESH_CASES}
+    record = {}
+    for tag, (_, _, cls, nb, nb_loc, mB, objective, card_iters, cpu_iters,
+              per) in MESH_CASES.items():
+        recs = [r[tag] for r in ranks]
+        r0 = recs[0]
+        assert (r0["kkt"], r0["aligned"], r0["nb"], r0["nb_loc"],
+                r0["mB"]) == (cls, True, nb, nb_loc, mB), (tag, r0)
+        for run in ("first", "warm"):
+            res = r0[run]
+            assert res["status"] == "first_order", (tag, run, res)
+            rel = abs(res["objective"] - objective) / abs(objective)
+            assert rel <= 1e-6, (tag, run, res["objective"], rel)
+            for r in recs:
+                # K1 launched in every factorization on every rank
+                assert r[run]["launches"] == per * r[run]["factorizations"] \
+                    > 0, (tag, run, r[run])
+                assert r[run]["calls"] == r[run]["launches"], r[run]
+        # the final iterate bit-identical on every rank
+        assert len(set(r0["hashes"])) == 1, (tag, r0["hashes"])
+        assert all(r["hashes"] == r0["hashes"] for r in recs)
+        # K1 on the blocks of rank 0's last factorization
+        shapes = r0["shapes"]
+        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+               "bound_ms": 0.0}
+        err = rel_err = 0.0
+        for i, D in enumerate(blocks[tag]):
+            D = D.cuda()
+            e, re_ = check_backward(f"{tag}_mesh_call{i}", D, chol_linv,
+                                    chol_linv_reference)
+            err, rel_err = max(err, e), max(rel_err, re_)
+            t = k1_times(D, chol_linv, chol_linv_reference, 20)
+            tot["ms"] += t["kernel_device_ms"]
+            tot["plain_ms"] += t["plain_device_ms"]
+            tot["library_ms"] += t["library_device_ms"]
+            tot["bound_ms"] += k1_bound_ms(D.shape[0], D.shape[-1],
+                                           D.dtype)[0]
+        factor_log = collective_totals(r0["factor_collectives"])
+        print(json.dumps({
+            "mesh": tag, "ranks": MESH_RANKS, "backend": ranks[0]["backend"],
+            "staged_through_host": ranks[0]["staged"], "kkt": cls,
+            "nb": nb, "nb_loc": nb_loc, "bs": r0["bs"], "mB": mB,
+            "status": r0["first"]["status"],
+            "iterations": r0["first"]["iter"],
+            "single_card_iterations": card_iters,
+            "reference_cpu_iterations": cpu_iters,
+            "objective": r0["first"]["objective"],
+            "first_solve_s": [r["first"]["s"] for r in recs],
+            "warm_solve_s": [r["warm"]["s"] for r in recs],
+            "build_s": [r["build_s"] for r in recs],
+            "k1_launches": [r["first"]["launches"] for r in recs],
+            "factorizations": [r["first"]["factorizations"] for r in recs],
+            "k1_launches_per_factorization": per,
+            "k1_shapes_per_factorization": shapes,
+            "k1_plans": [launch_plan(n, torch.float64, nb_)._asdict()
+                         for nb_, n, _ in shapes],
+            "collectives_per_factorization": factor_log,
+            "peak_memory_above_baseline_bytes": [
+                r["peak_memory_above_baseline_bytes"] for r in recs],
+            "x_hashes": r0["hashes"]}))
+        record[tag] = {"launches_per_rank": [r["first"]["launches"]
+                                             for r in recs],
+                       "launches_per_factorization": per,
+                       "shapes": shapes, "max_abs_err": err,
+                       "max_rel_err": rel_err, **tot,
+                       "bound_by": "bytes"}
+    print(json.dumps({"mesh_phase_s": time.time() - t_phase}))
+    return record
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -898,6 +1147,10 @@ def main():
     # 14. the host LDL; 15. checkpoint/resume and the profiler trace
     ldl_phase()
     checkpoint_trace_phase()
+
+    # 16. the multi-device backends: 4 ranks on the card
+    record["sharded"] = mesh_phase(chol_linv, chol_linv_reference,
+                                   launch_plan)
 
     print(json.dumps({"elapsed_s": time.time() - t_start}))
     print(card_line())        # again here: the head of a long log is cut

@@ -42,10 +42,20 @@ class ExaTranscriptionBackend:
     ``device=`` selects the torch device, the analogue of the reference's
     ``backend = CUDABackend()`` (infiniteopt_backend.jl:97-131).  The
     default is the CUDA card; on a host without one this raises instead of
-    running on the CPU (pass ``device="cpu"`` for that)."""
+    running on the CPU (pass ``device="cpu"`` for that).
 
-    def __init__(self, solver_type=None, device=None, **solver_options):
+    ``mesh=`` (a :class:`~..parallel.Mesh`) spreads the model over the
+    ranks of a process group: family rows are padded to the mesh size and
+    each rank keeps its share at build, and the structured KKT then
+    assembles and factors each rank's scenario or time blocks on its own
+    device (``device`` defaults to the mesh's)."""
+
+    def __init__(self, solver_type=None, device=None, mesh=None,
+                 **solver_options):
+        if device is None and mesh is not None:
+            device = mesh.device
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.core = None           # ops.Core (host-side mutable data)
         self.model = None          # ops.SimdModel
         self.data = TranscriptionData()
@@ -82,7 +92,13 @@ class ExaTranscriptionBackend:
         inf_model = inf_model or self._inf_model
         self.empty()
         t0 = time.time()
-        self.model, self.data = transcribe(inf_model, device=self.device)
+        row_pad = self.mesh.size if self.mesh is not None else 1
+        self.model, self.data = transcribe(inf_model, device=self.device,
+                                           row_pad=row_pad)
+        if self.mesh is not None:
+            from ..parallel import shard_model
+
+            shard_model(self.model, self.mesh)
         self.core = self.model.core
         self.build_time = time.time() - t0
         self.ready = True

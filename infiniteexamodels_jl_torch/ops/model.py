@@ -26,9 +26,6 @@ from .segsum import SegmentSum
 
 class SimdModel:
     def __init__(self, core, dtype=None, device=None, row_pad=1):
-        if int(row_pad) != 1:
-            raise NotImplementedError(
-                "row_pad (family padding for a device mesh) is not ported")
         self.core = core
         self.dtype = dtype or torch.float64
         self.device = resolve_device(device)
@@ -36,6 +33,12 @@ class SimdModel:
         self.nvar = core.nvar
         self.ncon = core.ncon
         self.ntheta = core.ntheta
+        # family rows are padded up to a multiple of ``row_pad`` (repeating
+        # row 0's static data: no new pattern entries) so every family can
+        # be shared out over a mesh whatever its logical row count; padded
+        # rows are evaluated with the rest and never reach an output
+        self.row_pad = max(int(row_pad), 1)
+        self.mesh = None
 
         self.con_fams = [
             CompiledFamily(f.expr, f.itr, offset=f.offset, name=f.name)
@@ -57,16 +60,16 @@ class SimdModel:
         self.lcon = self._tensor(self._lcon_np)
         self.ucon = self._tensor(self._ucon_np)
 
-        # device copies of the per-family static gather tables
-        self._fam_dev = {}
+        # host copies of the per-family static gather tables, padded
+        self._fam_host = {}
         for fam in self.con_fams + self.obj_fams:
-            self._fam_dev[id(fam)] = (
-                torch.as_tensor(fam.vidx.astype(np.int64),
-                                device=self.device),
-                torch.as_tensor(fam.pidx.astype(np.int64),
-                                device=self.device),
-                self._tensor(fam.fdata),
-            )
+            tabs = (fam.vidx.astype(np.int64), fam.pidx.astype(np.int64),
+                    fam.fdata)
+            extra = -fam.n % self.row_pad if fam.n else 0
+            if extra:
+                tabs = tuple(np.concatenate([t, np.repeat(t[:1], extra, 0)])
+                             for t in tabs)
+            self._fam_host[id(fam)] = tabs
         # static sparsity patterns (numpy + device copies)
         self.jac_rows_np = (np.concatenate([f.jac_rows() for f in self.con_fams])
                             if self.con_fams else np.zeros(0, np.int64))
@@ -79,11 +82,15 @@ class SimdModel:
                              else np.zeros(0, np.int64))
         self.jac_rows = torch.as_tensor(self.jac_rows_np, device=self.device)
         self.jac_cols = torch.as_tensor(self.jac_cols_np, device=self.device)
+        self._jprod_plan = SegmentSum(self.jac_rows_np, self.ncon,
+                                      self.device)
+        self._jtprod_plan = SegmentSum(self.jac_cols_np, self.nvar,
+                                       self.device)
 
-        # deterministic scatter plans, one per destination pattern; the
-        # value streams are concatenated in family order, so the per-slot
-        # summation order is the family-by-family order of a sequential
-        # scatter-add
+        # the streams every output is finished from (see _place), and the
+        # deterministic scatter plans of the sums; a stream concatenates
+        # its families in order, so the per-slot summation order is the
+        # family-by-family order of a sequential scatter-add
         def vidx_stream(fams):
             parts = [f.vidx.reshape(-1) for f in fams if f.kx]
             return (np.concatenate(parts) if parts
@@ -94,12 +101,125 @@ class SimdModel:
         self._hvp_plan = SegmentSum(
             vidx_stream(self.con_fams + self.obj_fams), self.nvar,
             self.device)
-        self._jprod_plan = SegmentSum(self.jac_rows_np, self.ncon,
-                                      self.device)
-        self._jtprod_plan = SegmentSum(self.jac_cols_np, self.nvar,
-                                       self.device)
-
+        fams = self.con_fams + self.obj_fams
+        obj = [(f, 1) for f in self.obj_fams]
+        grad_ = [(f, f.kx) for f in self.obj_fams if f.kx]
+        cons = [(f, 1) for f in self.con_fams]
+        jac = [(f, f.kx) for f in self.con_fams if f.kx]
+        self._stream_specs = {
+            "obj": obj, "grad": grad_, "obj_grad": obj + grad_,
+            "cons": cons, "jac": jac, "cons_jac": cons + jac,
+            "hvp": [(f, f.kx) for f in fams if f.kx],
+            "hess": [(f, f.kx * f.kx) for f in fams if f.kx]}
+        self._place(None)
         self.refresh_from_core()
+
+    # -- row placement ---------------------------------------------------
+    def padded_rows(self, fam):
+        return len(self._fam_host[id(fam)][0])
+
+    def shard(self, mesh):
+        """Keep only this rank's rows of every family (see
+        ``parallel.shard_model``)."""
+        if mesh.device != self.device:
+            raise ValueError(f"mesh device {mesh.device} is not the "
+                             f"model's {self.device}")
+        self._place(mesh)
+
+    def _place(self, mesh):
+        """Put this rank's rows of each family on the device.
+
+        Without a mesh every row is local.  Over a mesh, rank r holds the
+        r-th contiguous slice of each family's padded rows; a family whose
+        padded count does not divide the mesh is held whole by rank 0.
+        ``_rows[id(fam)] = (lo, hi, valid, chunk)``: the local rows are
+        ``[lo, hi)`` of the padded table, the first ``valid`` of them real,
+        and ``chunk`` is every rank's share in the all-gather of a stream.
+
+        Every output is finished from a *stream*, the per-row values of
+        the real rows of its families in family order: constraint values,
+        Jacobian and Hessian COO values are streams themselves, and the
+        sums (objective, gradient, Hessian-vector product) are taken of a
+        stream by the single-device segment-sum plans.  Over a mesh each
+        rank evaluates its rows, one ``all_gather`` brings every rank's
+        values, and a precomputed index puts them in row order (exact: a
+        value is copied, never summed); every rank then finishes as one
+        device would, so a sharded model's outputs are the unsharded
+        model's bit for bit, on every rank.  (Summing per-rank partials
+        over the ranks instead would round differently from the one-device
+        order, and the degenerate stochastic programs amplify that into
+        another iterate sequence.)"""
+        self.mesh = mesh
+        nd, r = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+        self._rows = {}
+        self._fam_dev = {}
+        for fam in self.con_fams + self.obj_fams:
+            vidx, pidx, fdata = self._fam_host[id(fam)]
+            n_pad = len(vidx)
+            if nd == 1:
+                lo, hi, chunk = 0, n_pad, n_pad
+            elif n_pad and n_pad % nd == 0:
+                chunk = n_pad // nd
+                lo, hi = r * chunk, (r + 1) * chunk
+            else:
+                chunk = n_pad
+                lo, hi = 0, (n_pad if r == 0 else 0)
+            valid = max(0, min(hi, fam.n) - lo)
+            self._rows[id(fam)] = (lo, hi, valid, chunk)
+            self._fam_dev[id(fam)] = (
+                torch.as_tensor(vidx[lo:hi], device=self.device),
+                torch.as_tensor(pidx[lo:hi], device=self.device),
+                self._tensor(fdata[lo:hi]),
+            )
+        self._padded = any(self._nloc(f) != self._rows[id(f)][2]
+                           for f in self.con_fams + self.obj_fams)
+        self._stream_order = {}
+        if mesh is not None:
+            for key, spec in self._stream_specs.items():
+                self._stream_order[key] = torch.as_tensor(
+                    self._gather_order(spec, nd), device=self.device)
+
+    def _gather_order(self, spec, nd):
+        """Positions, in the flattened all-gather of a stream's per-rank
+        buffers, of the stream's values in row order."""
+        chunks = [self._rows[id(f)][3] * w for f, w in spec]
+        total = sum(chunks)
+        out, off = [], 0
+        for (f, w), ch in zip(spec, chunks):
+            g = np.arange(f.n)
+            chunk = self._rows[id(f)][3]
+            if nd > 1 and chunk * nd == self.padded_rows(f):
+                owner, local = g // max(chunk, 1), g % max(chunk, 1)
+            else:
+                owner, local = np.zeros_like(g), g
+            pos = owner * total + off + local * w
+            out.append((pos[:, None] + np.arange(w)[None, :]).reshape(-1))
+            off += ch
+        return (np.concatenate(out) if out
+                else np.zeros(0, np.int64)).astype(np.int64)
+
+    def _nloc(self, fam):
+        lo, hi, _, _ = self._rows[id(fam)]
+        return hi - lo
+
+    def _stream(self, key, parts):
+        """The stream ``key`` (each family's values over all its real rows,
+        in family order) from this rank's ``parts`` (one flat tensor per
+        family of the stream, over the local rows)."""
+        spec = self._stream_specs[key]
+        if self.mesh is None:
+            if self._padded:
+                parts = [p[:self._rows[id(f)][2] * w]
+                         for (f, w), p in zip(spec, parts)]
+            return torch.cat(parts) if parts else self._zeros(0)
+        if not parts:
+            return self._zeros(0)
+        buf = []
+        for (f, w), p in zip(spec, parts):
+            short = self._rows[id(f)][3] * w - p.numel()
+            buf.append(torch.cat([p, p.new_zeros(short)]) if short else p)
+        flat = self.mesh.all_gather(torch.cat(buf)).reshape(-1)
+        return flat[self._stream_order[key]]
 
     def _tensor(self, a):
         return torch.as_tensor(np.asarray(a), dtype=self.dtype,
@@ -160,59 +280,66 @@ class SimdModel:
         return x[vidx], theta[pidx], fdata
 
     def _fam_vals(self, fam, x, theta):
-        if fam.n == 0:
+        if self._nloc(fam) == 0:
             return self._zeros(0)
         return vmap(fam.fn)(*self._gather(fam, x, theta))
 
     def _fam_grads(self, fam, x, theta, dtype=None):
-        if fam.n == 0:
+        if self._nloc(fam) == 0:
             return x.new_zeros((0, fam.kx))
         return vmap(grad(fam.fn))(*self._gather(fam, x, theta,
                                                 dtype))  # (n, kx)
 
     def _fam_hess(self, fam, x, theta, dtype=None):
-        if fam.n == 0:
+        if self._nloc(fam) == 0:
             return x.new_zeros((0, fam.kx, fam.kx))
         return vmap(hessian(fam.fn))(*self._gather(fam, x, theta, dtype))
 
     def _fam_grad_and_value(self, fam, x, theta):
-        if fam.n == 0:
+        if self._nloc(fam) == 0:
             return self._zeros(0, fam.kx), self._zeros(0)
         return vmap(grad_and_value(fam.fn))(*self._gather(fam, x, theta))
 
+    def _obj_total(self, vals):
+        """The objective from its stream: each family's sum, added in
+        family order."""
+        total, off = self._zeros(), 0
+        for fam in self.obj_fams:
+            total = total + torch.sum(vals[off:off + fam.n])
+            off += fam.n
+        return total
+
     # -- evaluations (user sense; solvers fold in self.sense) ------------
     def obj(self, x, theta):
-        total = self._zeros()
-        for fam in self.obj_fams:
-            total = total + torch.sum(self._fam_vals(fam, x, theta))
-        return total
+        return self._obj_total(self._stream(
+            "obj", [self._fam_vals(fam, x, theta) for fam in self.obj_fams]))
 
     def grad(self, x, theta):
         parts = [self._fam_grads(fam, x, theta).reshape(-1)
                  for fam in self.obj_fams if fam.kx]
         if not parts:
             return self._zeros(self.nvar)
-        return self._grad_plan(torch.cat(parts))
+        return self._grad_plan(self._stream("grad", parts))
 
     def cons(self, x, theta):
-        if not self.con_fams:
-            return self._zeros(0)
-        return torch.cat([self._fam_vals(f, x, theta) for f in self.con_fams])
+        return self._stream("cons", [self._fam_vals(f, x, theta)
+                                     for f in self.con_fams])
 
     # -- fused value+derivative sweeps (one vmapped pass per family) ------
     def obj_and_grad(self, x, theta):
-        total = self._zeros()
-        parts = []
+        vals, parts = [], []
         for fam in self.obj_fams:
             if fam.kx == 0:
-                total = total + torch.sum(self._fam_vals(fam, x, theta))
+                vals.append(self._fam_vals(fam, x, theta))
                 continue
             gv, v = self._fam_grad_and_value(fam, x, theta)
-            total = total + torch.sum(v)
+            vals.append(v)
             parts.append(gv.reshape(-1))
-        g = (self._grad_plan(torch.cat(parts)) if parts
+        both = self._stream("obj_grad", vals + parts)
+        nobj = sum(f.n for f in self.obj_fams)
+        g = (self._grad_plan(both[nobj:]) if parts
              else self._zeros(self.nvar))
-        return total, g
+        return self._obj_total(both[:nobj]), g
 
     def cons_and_jac(self, x, theta):
         vals, jparts = [], []
@@ -223,18 +350,21 @@ class SimdModel:
             gv, v = self._fam_grad_and_value(fam, x, theta)
             vals.append(v)
             jparts.append(gv.reshape(-1))
-        cval = torch.cat(vals) if vals else self._zeros(0)
-        jvals = torch.cat(jparts) if jparts else self._zeros(0)
-        return cval, jvals
+        both = self._stream("cons_jac", vals + jparts)
+        return both[:self.ncon], both[self.ncon:]
 
     def jac_vals(self, x, theta):
         """Values matching (jac_rows, jac_cols)."""
-        parts = [self._fam_grads(fam, x, theta).reshape(-1)
-                 for fam in self.con_fams if fam.kx]
-        return torch.cat(parts) if parts else self._zeros(0)
+        return self._stream("jac", [self._fam_grads(fam, x, theta)
+                                    .reshape(-1)
+                                    for fam in self.con_fams if fam.kx])
 
     def _lam_slice(self, lam, fam):
-        return lam[fam.offset:fam.offset + fam.n]
+        """``lam`` over the family's local rows (zero on padded ones)."""
+        lo, hi, valid, _ = self._rows[id(fam)]
+        w = lam[fam.offset + lo:fam.offset + lo + valid]
+        return torch.cat([w, w.new_zeros(hi - lo - valid)]) \
+            if hi - lo > valid else w
 
     def hess_vals(self, x, theta, lam, sigma):
         """Lagrangian Hessian COO values (full symmetric pattern
@@ -252,7 +382,7 @@ class SimdModel:
             if fam.kx:
                 parts.append((sigma * self._fam_hess(fam, x, theta))
                              .reshape(-1))
-        return torch.cat(parts) if parts else self._zeros(0)
+        return self._stream("hess", parts)
 
     def hvp_lag(self, x, theta, lam, sigma, v):
         """Lagrangian Hessian-vector product
@@ -261,7 +391,10 @@ class SimdModel:
         the row-gathered slices of ``v`` (cost ~2 gradient sweeps)."""
         parts = []
         for fam in self.con_fams + self.obj_fams:
-            if fam.kx == 0 or fam.n == 0:
+            if fam.kx == 0:
+                continue
+            if self._nloc(fam) == 0:
+                parts.append(v.new_zeros(0))
                 continue
             xg, pg, fv = self._gather(fam, x, theta)
             vg = v[self._fam_dev[id(fam)][0]]              # (n, kx)
@@ -273,13 +406,13 @@ class SimdModel:
             Hv = vmap(hvp_row)(xg, vg, pg, fv)             # (n, kx)
             if fam.offset is None:                         # objective
                 w = torch.as_tensor(sigma, dtype=Hv.dtype,
-                                    device=Hv.device).expand(fam.n)
+                                    device=Hv.device).expand(Hv.shape[0])
             else:
                 w = self._lam_slice(lam, fam).to(Hv.dtype)
             parts.append((w[:, None] * Hv).reshape(-1))
         if not parts:
             return torch.zeros(self.nvar, dtype=v.dtype, device=v.device)
-        return self._hvp_plan(torch.cat(parts))
+        return self._hvp_plan(self._stream("hvp", parts))
 
     def kkt_vals(self, x, theta, lam, sigma, d, dtype=None):
         """COO values of the condensed-KKT sparse part
@@ -311,7 +444,9 @@ class SimdModel:
                 continue
             H = self._fam_hess(fam, x, theta, dtype)
             parts.append((sigma * H).reshape(-1))
-        return torch.cat(parts) if parts else x.new_zeros(0)
+        if not parts:
+            return x.new_zeros(0)
+        return self._stream("hess", parts)
 
     # -- COO matvec helpers ----------------------------------------------
     def jprod(self, jvals, v):

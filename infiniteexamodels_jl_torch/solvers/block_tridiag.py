@@ -159,10 +159,18 @@ class BlockTridiagKKT:
     assemble_dtype = None
 
     def __init__(self, model, max_block=512, min_blocks=4, max_border=4096,
-                 factor_dtype=None):
+                 factor_dtype=None, mesh=None, mesh_axis="sp",
+                 nb_round=None):
         self.factor_dtype = factor_dtype
         self.model = model
         self.device = model.device
+        # the mesh the sharded subclasses split the blocks over; this class
+        # itself factors the whole system on every rank (its inputs, the
+        # model's gathered KKT values, are the same on every rank).
+        # ``mesh_axis`` is accepted for the reference's signature: a mesh
+        # here is one process group, with one axis
+        self.mesh = mesh if mesh is not None else getattr(model, "mesh",
+                                                          None)
         n = model.nvar
         rows = model.hess_rows_np
         cols = model.hess_cols_np
@@ -252,6 +260,10 @@ class BlockTridiagKKT:
                 pos, bw = pos_rcm, bw_rcm
             bs = _round_up(max(bw, 1) + 1, 8)
             nb = max((nT + bs - 1) // bs, 1)
+            if nb_round is not None:
+                # round the block count up for mesh segmentation (band
+                # partitioning); extra blocks are pure identity padding
+                nb = max(int(nb_round(nb)), nb)
             slot[t_ids] = pos[t_ids]
             self.mode = "band"
 
@@ -308,6 +320,7 @@ class BlockTridiagKKT:
 
         # scatter targets for diagonal additions + rhs permutation
         self._slot_np = slot
+        self.t_ids_np, self.b_ids_np = t_ids, b_ids
         self.b_ids = as_t(b_ids)
         tslot = slot[t_ids]
         # diagonal additions: sorted + unique flat destinations in D
@@ -470,11 +483,29 @@ class BlockTridiagKKT:
 
 def make_structured_kkt(model, fallback=True, **kwargs):
     """Detect block structure; fall back to the dense backend when the
-    problem is too small or has no usable block layout.  Only the numpy
-    structure analysis is guarded: assembly, factoring and the kernel are
-    never reached here, and their failures propagate to the caller."""
+    problem is too small or has no usable block layout.  With a mesh of
+    more than one rank (``mesh=`` or the model's), a scenario problem gets
+    the aligned :class:`~.scenario_shard.ShardedScenarioKKT`, a band
+    problem it cannot align the :class:`~.band_shard.ShardedBandKKT`, and
+    anything neither aligns their single-device fallback (every rank
+    factors the whole system).  Only the numpy structure analysis is
+    guarded: assembly, factoring and the kernel are never reached here,
+    and their failures propagate to the caller."""
+    mesh = kwargs.get("mesh") or getattr(model, "mesh", None)
     try:
-        kkt = BlockTridiagKKT(model, **kwargs)
+        if mesh is not None and mesh.size > 1:
+            from .scenario_shard import ShardedScenarioKKT
+
+            kkt = ShardedScenarioKKT(model, **kwargs)
+            if kkt.usable and not kkt.aligned and kkt.mode == "band":
+                # time-structured problem on a mesh: segment the band
+                from .band_shard import ShardedBandKKT
+
+                band = ShardedBandKKT(model, **kwargs)
+                if band.usable:
+                    kkt = band
+        else:
+            kkt = BlockTridiagKKT(model, **kwargs)
     except Exception:
         if not fallback:
             raise

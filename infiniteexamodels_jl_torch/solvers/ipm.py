@@ -814,43 +814,68 @@ class IpmSolver:
 
             rhs2 = pulled(rp + inv_ss * rs)
             rhs = -(rx + m.jtprod(jvals, D * rhs2))
-            dx = kkt.solve(fac, rhs)
+            # on the aligned sharded backends the solve and the whole
+            # refinement loop run in T-layout (each rank's own block slots
+            # plus the replicated border), with no O(n) collective per
+            # round; the one all-gather per step direction is the final
+            # tl_scatter.  ir32 refines against the model's operator, which
+            # needs the replicated vector every round, so it stays there
+            use_tl = getattr(kkt, "tlayout", False) and not ir_ref \
+                and not exact
             if exact:
                 # an exact backend (the host LDL) needs no refinement
+                dx = kkt.solve(fac, rhs)
                 rr_final = zero
                 ref_ok = torch.ones((), dtype=torch.bool, device=dev)
             elif ir_ref:
                 dx, rr_final = refine_pcg(
-                    fac, rhs, dx, torch.linalg.norm(rhs) + tiny, D,
-                    diag_extra)
+                    fac, rhs, kkt.solve(fac, rhs),
+                    torch.linalg.norm(rhs) + tiny, D, diag_extra)
                 ref_ok = rr_final <= refine_accept
             else:
                 # residual-driven iterative refinement of the CONDENSED
-                # solve: exits early when the relative residual is small or
-                # stops contracting; a final residual above refine_accept
-                # marks the step failed so the regularization ladder
-                # escalates (or the f32 step set demotes)
+                # solve, over either layout: exits early when the relative
+                # residual is small or stops contracting; a final residual
+                # above refine_accept marks the step failed so the
+                # regularization ladder escalates (or the f32 step set
+                # demotes)
+                if use_tl:
+                    vnorm, vsub, vadd, vsel = (kkt.tl_norm, kkt.tl_sub,
+                                               kkt.tl_add, kkt.tl_where)
+                    ksolve = lambda r: kkt.solve_tl(fac, r)   # noqa: E731
+                    kmv = lambda w: kkt.matvec_tl(K, w)       # noqa: E731
+                    rhs_v = kkt.tl_gather(rhs)
+                else:
+                    vnorm, vsub, vadd = (torch.linalg.norm, torch.sub,
+                                         torch.add)
+                    vsel = torch.where
+                    ksolve = lambda r: kkt.solve(fac, r)      # noqa: E731
+                    kmv = lambda w: kkt.matvec(K, w)          # noqa: E731
+                    rhs_v = rhs
                 rhs_norm = torch.linalg.norm(rhs) + tiny
-                resid = rhs - kkt.matvec(K, dx)
+                dx = ksolve(rhs_v)
+                resid = vsub(rhs_v, kmv(dx))
                 prev = torch.full((), inf, dtype=dt, device=dev)
                 i = 0
                 while True:
-                    rr = torch.linalg.norm(resid) / rhs_norm
+                    rr = vnorm(resid) / rhs_norm
                     if not (i < refine_max and bool(
                             (rr > refine_tol)
                             & (rr < refine_contract * prev))):
                         break
-                    dxn = dx + kkt.solve(fac, resid)
-                    residn = rhs - kkt.matvec(K, dxn)
-                    rrn = torch.linalg.norm(residn) / rhs_norm
+                    dxn = vadd(dx, ksolve(resid))
+                    residn = vsub(rhs_v, kmv(dxn))
+                    rrn = vnorm(residn) / rhs_norm
                     # keep the better iterate if refinement diverges
                     worse = rrn > rr
-                    dx = torch.where(worse, dx, dxn)
-                    resid = torch.where(worse, resid, residn)
+                    dx = vsel(worse, dx, dxn)
+                    resid = vsel(worse, resid, residn)
                     prev = rr
                     i += 1
-                rr_final = torch.linalg.norm(resid) / rhs_norm
+                rr_final = vnorm(resid) / rhs_norm
                 ref_ok = rr_final <= refine_accept
+                if use_tl:
+                    dx = kkt.tl_scatter(dx)
             dy = D * (m.jprod(jvals, dx) + rhs2)
             ds = inv_ss * (dy - rs)
             ok = ok & torch.isfinite(dx).all() & \
@@ -1469,9 +1494,15 @@ class IpmSolver:
         timers = {"build": np.nan, "step_total": 0.0, "first_chunk": np.nan}
         status = "max_iter"
         verbose = o["print_level"] >= 5
+        # over a mesh every rank runs this loop on the same replicated
+        # values, so every rank takes the same decisions; rank 0 alone
+        # prints and writes checkpoints
+        mesh = getattr(m, "mesh", None)
+        lead = mesh is None or mesh.rank == 0
+        say = print if lead else (lambda *a, **k: None)
         if verbose:
-            print("iter    objective    inf_pr   inf_du     mu    "
-                  "alpha  alpha_z  ls   dw      rr      E0")
+            say("iter    objective    inf_pr   inf_du     mu    "
+                "alpha  alpha_z  ls   dw      rr      E0")
         it = 0
         resto_entries = 0
         prev_chunk_obj = None      # recalc_y_stall objective-stall gate
@@ -1520,16 +1551,16 @@ class IpmSolver:
                 code = RUNNING
                 st = st._replace(status=_i32(RUNNING, dev))
                 if verbose:
-                    print(f"{it:4d}  -- f32 factorization demoted to f64 "
-                          f"(mu={float(st.mu):.1e}, rr={float(st.log_rr):.1e},"
-                          f" ls={int(st.log_ls)}) --")
+                    say(f"{it:4d}  -- f32 factorization demoted to f64 "
+                        f"(mu={float(st.mu):.1e}, rr={float(st.log_rr):.1e},"
+                        f" ls={int(st.log_ls)}) --")
                 continue
             if code == NEED_RESTORATION:
                 if resto_entries < o["resto_max_entries"]:
                     resto_entries += 1
                     if verbose:
-                        print(f"{it:4d}  -- feasibility restoration phase "
-                              f"(entry {resto_entries}) --")
+                        say(f"{it:4d}  -- feasibility restoration phase "
+                            f"(entry {resto_entries}) --")
                     t0 = time.time()
                     st = self._restore(st, consts)
                     code = RUNNING
@@ -1538,12 +1569,12 @@ class IpmSolver:
                 code = STALLED
                 st = st._replace(status=_i32(STALLED, dev))
             if verbose:
-                print(f"{it:4d} {float(st.log_obj)/float(consts['sf'])* m.sense: .7e} "
-                      f"{float(st.log_inf_pr):8.2e} {float(st.log_inf_du):8.2e} "
-                      f"{float(st.mu):7.1e} {float(st.log_alpha):6.4f} "
-                      f"{float(st.log_alpha_z):6.4f} {int(st.log_ls):3d} "
-                      f"{float(st.log_delta_w):7.1e} {float(st.log_rr):7.1e}"
-                      f" {float(st.log_E0):7.1e}")
+                say(f"{it:4d} {float(st.log_obj)/float(consts['sf'])* m.sense: .7e} "
+                    f"{float(st.log_inf_pr):8.2e} {float(st.log_inf_du):8.2e} "
+                    f"{float(st.mu):7.1e} {float(st.log_alpha):6.4f} "
+                    f"{float(st.log_alpha_z):6.4f} {int(st.log_ls):3d} "
+                    f"{float(st.log_delta_w):7.1e} {float(st.log_rr):7.1e}"
+                    f" {float(st.log_E0):7.1e}")
             if at_host and code == RUNNING and (o["recalc_y"]
                                                 or o["recalc_y_stall"]):
                 # degenerate-ray dual reset (Ipopt recalc_y role): replace
@@ -1569,16 +1600,26 @@ class IpmSolver:
                 if fire:
                     st = st._replace(y=self._lsq_duals(st, consts))
                     if verbose:
-                        print(f"{it:4d}  -- least-squares dual recalc "
-                              f"(du={float(st.log_inf_du):.1e}) --")
+                        say(f"{it:4d}  -- least-squares dual recalc "
+                            f"(du={float(st.log_inf_du):.1e}) --")
             if at_host and checkpoint_path and checkpoint_every and \
                     it // checkpoint_every != \
                     (it - chunk) // checkpoint_every:
-                self.save_checkpoint(checkpoint_path, st)
+                if lead:
+                    self.save_checkpoint(checkpoint_path, st)
+                if mesh is not None:
+                    mesh.barrier()     # written before any rank reads it
             if code != RUNNING:
                 status = _STATUS_NAMES[code]
                 break
-            if time.time() - t_start > o["max_wall_time"]:
+            out_of_time = time.time() - t_start > o["max_wall_time"]
+            if mesh is not None and \
+                    o["max_wall_time"] < DEFAULTS["max_wall_time"]:
+                # a limit was set and the ranks' clocks differ: they stop
+                # together when any one is late
+                out_of_time = bool(mesh.psum_scalar(torch.as_tensor(
+                    float(out_of_time), dtype=m.dtype, device=dev)) > 0)
+            if out_of_time:
                 status = "max_time"
                 break
         solve_time = time.time() - t_start
@@ -1597,8 +1638,8 @@ class IpmSolver:
                                  log_inf_du=st.best_inf_du)
                 status = "acceptable"
                 if verbose:
-                    print(f"{it:4d}  -- limit hit: best iterate restored "
-                          f"(E={best_E:.1e}) => acceptable --")
+                    say(f"{it:4d}  -- limit hit: best iterate restored "
+                        f"(E={best_E:.1e}) => acceptable --")
 
         # final dual polish on "acceptable" exits: one least-squares recalc
         # of the multipliers at the returned iterate, kept only if the true
@@ -1609,8 +1650,8 @@ class IpmSolver:
             if float(du_pol) < float(st.log_inf_du):
                 st = st_pol._replace(log_inf_du=du_pol)
                 if verbose:
-                    print(f"{it:4d}  -- dual polish: du -> "
-                          f"{float(du_pol):.2e} --")
+                    say(f"{it:4d}  -- dual polish: du -> "
+                        f"{float(du_pol):.2e} --")
 
         n = m.nvar
         sf, sc = consts["sf"], consts["sc"]

@@ -24,6 +24,10 @@ from infiniteexamodels_jl_torch.solvers import IpmSolver
 import infiniteexamodels_jl_torch.interop                  # noqa: F401
 import infiniteexamodels_jl_torch.solvers.block_tridiag    # noqa: F401
 import infiniteexamodels_jl_torch.solvers.cpp_ldl          # noqa: F401
+import infiniteexamodels_jl_torch.parallel                 # noqa: F401
+import infiniteexamodels_jl_torch.parallel.distributed     # noqa: F401
+import infiniteexamodels_jl_torch.solvers.scenario_shard   # noqa: F401
+import infiniteexamodels_jl_torch.solvers.band_shard       # noqa: F401
 out = []
 for opts in ({}, {"linear_solver": "auto", "factor_dtype": "mixed"},
              {"linear_solver": "ldl_cpp"}):
@@ -49,7 +53,9 @@ print(json.dumps({"solves": out, "bad": bad,
 def test_port_imports_and_solves_without_jax():
     """hovercraft-41 solved three ways without JAX: the dense KKT, the
     "mixed" step set (its band KKT view factored in f32) and the host LDL,
-    whose library is the port's own build, never the one in ``native/``."""
+    whose library is the port's own build, never the one in ``native/``;
+    the multi-device modules (``parallel``, the sharded KKTs) import
+    without JAX as well."""
     out = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
