@@ -12,7 +12,11 @@ package's TPU kernel replaced by a hand-written Hopper kernel
 - ``solvers``    -- filter line-search IPM on the condensed KKT; dense and
   band/block-diagonal KKT backends; K1 (batched Cholesky + L^{-1}).
 - ``backend``    -- transformation-backend lifecycle and queries.
-- ``models``     -- model families (quadrotor, hovercraft).
+- ``parallel``   -- meshes and collectives, one process per device (the
+  sharded KKTs are in ``solvers``).
+- ``models``     -- the seven model families (hovercraft, quadrotor,
+  kinetics, pandemic, farmer, design_3node, opf).
+- ``tools``      -- command-line tools (``run_examples``, ``profile``).
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; nothing here changes global torch state at import.
@@ -40,6 +44,6 @@ from .modeling import (  # noqa: F401
     InternalLabel,
 )
 from .backend import ExaTranscriptionBackend, TranscriptionData  # noqa: F401
-from .solvers import IpmSolver  # noqa: F401
+from .solvers import IpmSolver, MadIpmSolver  # noqa: F401
 
 __version__ = "0.1.0"

@@ -84,6 +84,7 @@ class ShardedBandKKT(_AlignedKKT, BlockTridiagKKT):
             return
         self.aligned = True
         self.tlayout = True
+        self._release_whole_system_tables()
 
     # ------------------------------------------------------------------
     def _build_aligned(self, model, nd, rank):

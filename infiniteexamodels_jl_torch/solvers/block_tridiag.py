@@ -157,6 +157,7 @@ class BlockTridiagKKT:
     in the model's dtype."""
 
     assemble_dtype = None
+    factorizations = 0      # calls of :meth:`factor` on this instance
 
     def __init__(self, model, max_block=512, min_blocks=4, max_border=4096,
                  factor_dtype=None, mesh=None, mesh_axis="sp",
@@ -398,8 +399,19 @@ class BlockTridiagKKT:
         out = torch.cat([out_T.reshape(-1), out_B])[self.out_perm]
         return out.to(out_dt)
 
+    def k1_launches_per_factorization(self):
+        """K1 launches of one :meth:`factor`: one for the block-diagonal
+        branch; one per BCR level plus the root in band mode."""
+        if self.block_diag:
+            return 1
+        m, launches = self.nb, 1
+        while m > 1:
+            m, launches = (m + 1) // 2, launches + 1
+        return launches
+
     # ------------------------------------------------------------------
     def factor(self, K):
+        self.factorizations += 1
         D, L, B, C = K
         nb, bs, mB = self.nb, self.bs, self.mB
 
@@ -438,13 +450,18 @@ class BlockTridiagKKT:
 
         if mB:
             # S = C - B^T T^{-1} B; border solves reduce to matmuls with Z
-            S = C - torch.einsum("bij,bik->jk", B, Z)
-            Ls, info = torch.linalg.cholesky_ex(S)
-            Ls = torch.where(info != 0, torch.nan, Ls)
+            Ls = self._schur_cholesky(C - torch.einsum("bij,bik->jk", B, Z))
             ok = ok & torch.isfinite(Ls).all()
         else:
             Ls = D.new_zeros((0, 0))
         return (tfac, Z, Ls, sT, sB), ok
+
+    @staticmethod
+    def _schur_cholesky(S):
+        """Cholesky factor of the border's Schur complement ``S`` (mB, mB);
+        NaN where ``S`` is not SPD."""
+        Ls, info = torch.linalg.cholesky_ex(S)
+        return torch.where(info != 0, torch.nan, Ls)
 
     # ------------------------------------------------------------------
     def _t_solve(self, tfac, r):

@@ -159,6 +159,20 @@ class _AlignedKKT(TLayoutOps):
     builds ``_al_tabs``, ``_asm_plan``, ``_dg_src``/``_dg_dst`` and
     ``_pad_dst``."""
 
+    # the parent's device tables over the whole system (its assembly
+    # plans, the padding identity of every block, the slot permutations),
+    # which the aligned path never reads: it assembles, factors and solves
+    # only this rank's blocks.  Kept, they would make every rank hold as
+    # much as one device does (quad-1000: the padding identity alone is
+    # 1,024 blocks of 64 x 64, 33.6 MB)
+    WHOLE_SYSTEM_TABLES = ("D_plan", "L_plan", "B_plan", "C_plan",
+                           "pad_eye", "diag_take", "diag_dest", "slot_src",
+                           "slot_mask", "out_perm")
+
+    def _release_whole_system_tables(self):
+        for name in self.WHOLE_SYSTEM_TABLES:
+            setattr(self, name, None)
+
     def _local_buffer(self, x, theta, lam, sigma, d, diag_extra):
         """This rank's assembled buffer (rows, diagonal, padding)."""
         x, theta, lam, sigma, d, diag_extra = _cast_inputs(
@@ -231,6 +245,7 @@ class ShardedScenarioKKT(_AlignedKKT, BlockTridiagKKT):
             return
         self.aligned = True
         self.tlayout = True
+        self._release_whole_system_tables()
 
     # ------------------------------------------------------------------
     def _build_aligned(self, model, nd, rank):

@@ -1,9 +1,11 @@
 """The PyTorch port's band/block KKT backend against the JAX package's on
-quad-12 (band), hovercraft-41 and farmer-64 (scenario blocks with a border):
-structure analysis (equal), block assembly (rtol 1e-12), and factor+solve
-against the JAX backend and against the port's dense backend (rtol 1e-10;
-test_block_kkt.py's ``_linear_system_parity`` holds the JAX backends to
-1e-8)."""
+quad-12 (band), hovercraft-41, farmer-64 (scenario blocks with a border)
+and pandemic-56x10 (band with a border of 66): structure analysis (equal),
+block assembly (rtol 1e-12), and factor+solve against the JAX backend and
+against the port's dense backend (rtol 1e-10; test_block_kkt.py's
+``_linear_system_parity`` holds the JAX backends to 1e-8) -- for
+pandemic-56x10 (n = 5,346) against the JAX backend's matvec and by the
+solve's residual through matvec instead of a dense matrix."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,7 +28,15 @@ CASES = {
     "hovercraft41": lambda M: M.hovercraft(num_supports=41),
     # scenario blocks plus the first-stage arrowhead border
     "farmer64": lambda M: M.farmer(num_scenarios=64),
+    # the band with a border: the smallest pandemic grid that takes it
+    # (components wider than max_block, so band mode; from 10 scenarios on
+    # the shared control u(t) is the border) -- n = 5,346
+    "pandemic56x10": lambda M: M.pandemic(num_supports=56,
+                                          num_scenarios=10),
 }
+# above this n the dense (n, n) comparison is left out and the solve is
+# held by its residual through matvec instead
+DENSE_MAX_N = 2000
 KW = dict(min_blocks=2)
 
 
@@ -65,8 +75,10 @@ def test_structure_matches_jax(case):
     # quad-12 is band mode; hovercraft-41 splits into two components
     # (one per axis) and takes the block-diagonal branch; farmer-64 has one
     # block per scenario and the 3 first-stage variables as its border
+    # pandemic-56x10 is band mode with 66 border variables
     assert (tb.mode, tb.mB) == {8: ("band", 0), 2: ("block_diag", 0),
-                                64: ("block_diag", 3)}[tb.nb]
+                                64: ("block_diag", 3),
+                                330: ("band", 66)}[tb.nb]
     assert np.array_equal(jb._slot_np, tb._slot_np)
     # the assembly plans add the same value positions into each
     # destination, in the same order
@@ -116,11 +128,20 @@ def test_factor_solve_match_jax_and_dense(case):
     xt = tb.solve(ft, rhs).numpy()
     xj = np.asarray(jb.solve(fj, jnp.asarray(pt["rhs"])))
     np.testing.assert_allclose(xt, xj, rtol=1e-10, atol=1e-10)
+    v = torch.as_tensor(pt["v"])
+    if tm.nvar > DENSE_MAX_N:
+        np.testing.assert_allclose(
+            tb.matvec(Kt, v).numpy(),
+            np.asarray(jb.matvec(Kj, jnp.asarray(pt["v"]))),
+            rtol=1e-10, atol=1e-8)
+        res = torch.linalg.vector_norm(tb.matvec(Kt, torch.as_tensor(xt))
+                                       - rhs)
+        assert float(res / torch.linalg.vector_norm(rhs)) <= 1e-12
+        return
     dense = DenseKKT(tm)
     Kd = dense.assemble(torch.as_tensor(pt["x"]), tm.theta,
                         torch.as_tensor(pt["lam"]), 1.0,
                         torch.as_tensor(pt["d"]), torch.as_tensor(pt["diag"]))
-    v = torch.as_tensor(pt["v"])
     np.testing.assert_allclose(tb.matvec(Kt, v).numpy(), (Kd @ v).numpy(),
                                rtol=1e-10, atol=1e-8)
     fd, okd = dense.factor(Kd)
@@ -157,3 +178,26 @@ def test_factor_solve_of_carried_across_jax_blocks(case):
         tb.solve(ft, torch.as_tensor(pt["rhs"])).numpy(),
         np.asarray(jb.solve(fj, jnp.asarray(pt["rhs"]))),
         rtol=1e-8, atol=1e-8)
+
+
+def test_k1_launches_per_factorization(case, monkeypatch):
+    """One factorization calls K1 as often as the structure says: once in
+    the block-diagonal branch, once per BCR level plus the root in band
+    mode (quad-12: 8 blocks, 4; pandemic-56x10: 330 blocks, 10)."""
+    from infiniteexamodels_jl_torch.solvers import block_tridiag
+    jm, tm, jb, tb, pt, (Kj, Kt) = case
+    calls = []
+    k1 = block_tridiag._chol_linv
+
+    def counted(D):
+        calls.append(D.shape[0])
+        return k1(D)
+    monkeypatch.setattr(block_tridiag, "_chol_linv", counted)
+    n0 = tb.factorizations
+    tb.factor(Kt)
+    assert tb.factorizations == n0 + 1
+    assert len(calls) == tb.k1_launches_per_factorization()
+    want = {8: 4, 2: 1, 64: 1, 330: 10}[tb.nb]
+    assert len(calls) == want
+    # every block is eliminated once: at its BCR level or at the root
+    assert sum(calls) == tb.nb

@@ -103,3 +103,39 @@ def test_default_device_is_cuda_and_raises_without_it():
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device(None)
     assert resolve_device("cpu").type == "cpu"
+
+
+# deliberate differences between the two packages' public names, by
+# (sub)package, with the reason
+PUBLIC_NAME_DIFFERENCES = {
+    # the port's one-process-per-device mesh; the JAX package's mesh is a
+    # jax.sharding.Mesh, which it does not export from parallel/
+    "parallel": {"Mesh"},
+}
+SUBPACKAGES = ("", "backend", "modeling", "models", "ops", "parallel",
+               "solvers", "transcribe", "utils")
+
+
+def _public_names(pkg):
+    """The names a package's ``__init__`` makes public: not private, not
+    a module (submodules are attributes once imported, in either
+    package)."""
+    import types
+    return {k for k, v in vars(pkg).items()
+            if not k.startswith("_") and not isinstance(v, types.ModuleType)}
+
+
+@pytest.mark.parametrize("sub", SUBPACKAGES, ids=lambda s: s or "top")
+def test_public_names_match_the_jax_package(sub):
+    """Every public name of the JAX package's ``__init__`` (top level and
+    each subpackage) is the port's, and the port adds only the listed
+    ones; ``from infiniteexamodels_jl_torch import MadIpmSolver`` works as
+    the reference's import does."""
+    import importlib
+    suffix = "." + sub if sub else ""
+    ref = importlib.import_module("infiniteexamodels_jl_tpu" + suffix)
+    port = importlib.import_module("infiniteexamodels_jl_torch" + suffix)
+    extra = PUBLIC_NAME_DIFFERENCES.get(sub, set())
+    assert _public_names(ref) - _public_names(port) == set()
+    assert _public_names(port) - _public_names(ref) <= extra
+    from infiniteexamodels_jl_torch import MadIpmSolver  # noqa: F401

@@ -240,3 +240,34 @@ def test_step_set_reaches_first_order(name, fd, port_f64):
         assert jres.status == "first_order" and len(want) >= 2
         assert s.host_returns == want
         np.testing.assert_array_equal(jres.solution, r.solution)
+
+
+def test_rounded_f32_factor_in_both_packages(capsys):
+    """``tests/torch_vs_jax_trajectory.py --rounded-f32`` (the tool that
+    gives both packages' f32 step sets the f64 factor rounded to f32, from
+    outside either package): farmer-32 "mixed" at tol 1e-8 ends
+    ``first_order`` in both at the same objective (1e-9 relative), with
+    the f32 phase handed over at the same iteration and for the same
+    reason."""
+    import json
+    from torch_vs_jax_trajectory import main
+
+    assert main(["--model", "farmer", "--size", "32", "--tol", "1e-8",
+                 "--factor-dtype", "mixed", "--rounded-f32"]) == 0
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    jax_run, port_run = lines[0]["jax"], lines[1]["port"]
+    assert jax_run["status"] == port_run["status"] == "first_order"
+    assert port_run["objective"] == pytest.approx(jax_run["objective"],
+                                                  rel=1e-9)
+    assert port_run["f32_until"] == jax_run["f32_until"]
+    assert port_run["f32_steps"] == jax_run["f32_steps"] > 0
+    # the wrap is undone: the f32 view factors in f32 again
+    tm, _ = ttranscribe(BUILD["farmer32"](tmodels), device="cpu")
+    kkt = BlockTridiagKKT(tm, factor_dtype=torch.float32)
+    jm = _both("farmer32")[0]
+    p = _point(jm, 0)
+    K = kkt.assemble(torch.as_tensor(p["x"]), tm.theta,
+                     torch.as_tensor(p["lam"]), 1.0,
+                     torch.as_tensor(p["d"]), torch.as_tensor(p["diag"]))
+    fac, ok = kkt.factor(K)
+    assert bool(ok) and fac[1].dtype == torch.float32

@@ -1,7 +1,10 @@
-"""Solves of the scenario and collocation families through the port on the
-CPU, held to the JAX package's oracles with the tolerances its own tests use
-(tests/test_models.py ORACLES, imported), and opf-64 through the scenario KKT
-at the objective the JAX package reaches on the same model."""
+"""Solves of the model families through the port on the CPU, held to the
+JAX package's oracles with the tolerances its own tests use
+(tests/test_models.py ORACLES, imported): hovercraft-41 through its
+waypoints, the scenario and collocation families, and opf-64 through the
+scenario KKT at the objective the JAX package reaches on the same model.
+The JAX file's three slow pandemic solves are
+tests/test_torch_pandemic_slow.py."""
 import numpy as np
 import pytest
 import torch
@@ -33,6 +36,22 @@ def attach(m, **opts):
         IpmSolver, device="cpu", linear_solver="auto", **opts))
     m.set_silent()
     return m
+
+
+def test_hovercraft_hits_waypoints():
+    m = attach(tmodels.hovercraft(num_supports=41))
+    res = m.optimize()
+    assert res.status == "first_order"
+    assert m.objective_value() == pytest.approx(ORACLES["hovercraft41"],
+                                                abs=1e-6)
+    xvals = [np.asarray(m.value(v))
+             for v in (m.infinite_vars[0], m.infinite_vars[1])]
+    tg = np.asarray(m.supports(m.infinite_vars[0]))
+    xw = np.array([[1, 4, 6, 1], [1, 3, 0, 1]], dtype=float)
+    for j, tw in enumerate([0.0, 25.0, 50.0, 60.0]):
+        k = int(np.argmin(np.abs(tg - tw)))
+        assert xvals[0][k] == pytest.approx(xw[0, j], abs=1e-6)
+        assert xvals[1][k] == pytest.approx(xw[1, j], abs=1e-6)
 
 
 @pytest.fixture(scope="module")
@@ -107,6 +126,17 @@ def test_kinetics_small():
     assert res.status in ("first_order", "acceptable")
     assert m.objective_value() == pytest.approx(ORACLES["kinetics30"],
                                                 abs=1e-6)
+
+
+@pytest.mark.slow
+def test_opf_stochastic():
+    """opf-10 (slow, as in the JAX package: small enough for the dense KKT,
+    where both packages crawl -- the JAX package 651 iterations, the port
+    1104 on the CPU)."""
+    m = attach(tmodels.opf(num_supports=10))
+    res = m.optimize()
+    assert res.status == "first_order"
+    assert m.objective_value() == pytest.approx(ORACLES["opf10"], rel=1e-6)
 
 
 def test_opf_static_pglib_anchor():

@@ -104,6 +104,18 @@ def test_aligned_kkt_matches_jax_and_single_device(ranks, case):
 
 
 @pytest.mark.parametrize("case", ["scenario", "band"])
+def test_rank_holds_only_its_blocks(ranks, case):
+    """An aligned rank keeps none of the parent's whole-system device
+    tables (assembly plans, padding identity, slot permutations), and its
+    assembled diagonal blocks are its share of the system's."""
+    for r in ranks:
+        got = r[case]
+        assert got["whole_system_tables"] == []
+        bs = got["bs"]
+        assert got["block_elements"][0] == got["nb_loc"] * bs * bs
+
+
+@pytest.mark.parametrize("case", ["scenario", "band"])
 def test_tlayout_roundtrip_and_norm(ranks, case):
     """tl_scatter(tl_gather(v)) == v exactly, and tl_norm is the 2-norm."""
     got = ranks[0][case]

@@ -128,7 +128,11 @@ def _kkt_case(mesh, case):
     out = dict(aligned=kkt.aligned, tlayout=kkt.tlayout, nb=kkt.nb,
                bs=kkt.bs, mB=kkt.mB, n=kkt.n, nd=kkt.nd, nb_loc=kkt.nb_loc,
                ok=bool(ok), matvec=kkt.matvec(K, rhs).numpy(),
-               solve=kkt.solve(fac, rhs).numpy())
+               solve=kkt.solve(fac, rhs).numpy(),
+               whole_system_tables=[
+                   name for name in kkt.WHOLE_SYSTEM_TABLES
+                   if getattr(kkt, name) is not None],
+               block_elements=[int(a.numel()) for a in K[:2]])
     # one T-layout step: assemble, factor, a solve and a refinement round
     with mesh.recording() as log:
         K = kkt.assemble(x, th, lam, 1.0, d, de)
