@@ -39,7 +39,9 @@ Phases (any failure raises and the script exits non-zero):
    segment-sum plans' tables and entries.
    The opf-16000 re-solve records the blocks of its last factorization;
 8. K1 on the recorded (16001, 24, 24) blocks: backward errors within 10x
-   of the plain version's, kernel, plain and library device times;
+   of the plain version's, kernel, plain and library device times; the
+   same blocks cast to f32: the three device times and the blocks K1 and
+   the plain version reject;
 9. farmer-1000 (the reference's default size) in ``block_diag`` mode with
    the 3 first-stage variables as border, ``first_order`` at the JAX CPU
    record;
@@ -52,13 +54,16 @@ Phases (any failure raises and the script exits non-zero):
     package's CPU record of the same step set;
 12. K1 in f32 on the blocks of the last f32 band factorization of the
     "mixed" solve: backward errors within 10x of the plain version's, the
-    kernel, plain and library device times and the bound (the ``f32``
-    record of the kernels line);
-13. opf-1000 with ``factor_dtype="mixed"`` in ``block_diag`` mode: one K1
-    launch per factorization, f32 ones counted, ``first_order`` at the JAX
-    CPU record of "mixed" (first solve only); K1 in f32 on the (1001, 24,
-    24) blocks of its last f32 factorization, backward errors within 10x
-    of the plain version's;
+    kernel, plain and library device times and the bound, and the blocks
+    that K1 and that its plain version reject over every f32
+    factorization of the solve (the plain version factors each f32 call's
+    blocks beside K1) (the ``f32`` record of the kernels line);
+13. opf-1000 and opf-100 with ``factor_dtype="mixed"`` in ``block_diag``
+    mode: one K1 launch per factorization, f32 ones counted,
+    ``first_order`` at the JAX CPU record of "mixed" (first solve only);
+    K1 in f32 on the (S + 1, 24, 24) blocks of its last f32 factorization,
+    backward errors within 10x of the plain version's (over the blocks it
+    factors); the blocks each rejects over the f32 factorizations;
 14. the host LDL on the card's tensors: quad-200 with
     ``linear_solver="ldl_cpp"``, ``first_order`` within 1e-8 of the band
     path's objective on the card, ms per iteration of both;
@@ -140,7 +145,10 @@ QUAD1000_LOWPREC = {
     "ir32": ("first_order", 31, 568.8399758433759, 25, "demotion"),
     "float32": ("first_order", 23, 568.8399758433637, 4, "demotion"),
 }
-OPF1000_MIXED = ("first_order", 15, 5744.482320299224, 1, "demotion")
+# opf-S "mixed", the same tools and options: S -> (status, iterations,
+# objective, last f32 step, why the f32 phase ended)
+OPF_MIXED = {1000: ("first_order", 15, 5744.482320299224, 1, "demotion"),
+             100: ("first_order", 62, 5744.482296956747, 44, "demotion")}
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM
 PEAK_FLOPS = {torch.float64: 67e12, torch.float32: 67e12}
@@ -354,17 +362,43 @@ def k1_main_path_record(blocks, chol_linv, chol_linv_reference, launches,
             "event_ms": {k: tot[k + "_event_ms"] for k in names}}
 
 
+def rejections():
+    """A tally of the blocks K1 and its plain version reject (not SPD by
+    their pivot tests) over the f32 factorizations of a solve."""
+    return {"factorizations": 0, "blocks": 0, "k1": 0, "plain": 0,
+            "k1_only": 0, "plain_only": 0}
+
+
+def tally_rejections(tally, D, L, chol_linv_reference):
+    """Adds one f32 factorization's blocks to ``tally``: ``L`` is K1's
+    factor of ``D``; the plain version factors the same blocks (a
+    comparison: K1's launch count does not move)."""
+    Lr, _, _ = chol_linv_reference(D)
+    bad = ~torch.isfinite(L).flatten(1).all(1)
+    bad_r = ~torch.isfinite(Lr).flatten(1).all(1)
+    tally["factorizations"] += 1
+    tally["blocks"] += D.shape[0]
+    tally["k1"] += int(bad.sum())
+    tally["plain"] += int(bad_r.sum())
+    tally["k1_only"] += int((bad & ~bad_r).sum())
+    tally["plain_only"] += int((bad_r & ~bad).sum())
+
+
 def solve_recorded(backend, m, chol_linv, seen=None, keep=1, dtype=None,
-                   last_K=None):
+                   last_K=None, tally=None):
     """One solve on the card, with K1's launches (its count set to 0 just
     before) and the band/scenario KKT's factorizations (a hook around
     ``BlockTridiagKKT.factor``) counted, and both counted again by dtype
     (K1's through a hook around ``block_tridiag._chol_linv``); with
     ``seen``, the blocks of the last ``keep`` calls (of ``dtype``, when
     given) are kept; with ``last_K`` (a list), the last assembled K that
-    was factored.  Returns (result, seconds, launches, factorizations,
-    {"k1": launches by dtype, "factor": factorizations by dtype})."""
+    was factored; with ``tally`` (``rejections()``), the blocks K1 and its
+    plain version reject in every f32 call.  Returns (result, seconds,
+    launches, factorizations, {"k1": launches by dtype, "factor":
+    factorizations by dtype})."""
     from infiniteexamodels_jl_torch.solvers import block_tridiag
+    from infiniteexamodels_jl_torch.solvers.chol_linv import (
+        chol_linv_reference)
     k1 = block_tridiag._chol_linv
     factor = block_tridiag.BlockTridiagKKT.factor
     factorizations = [0]
@@ -380,7 +414,11 @@ def solve_recorded(backend, m, chol_linv, seen=None, keep=1, dtype=None,
             seen.append(D.detach().clone(
                 memory_format=torch.contiguous_format))
             del seen[:-keep]
-        return k1(D)
+        out = k1(D)
+        if tally is not None and D.dtype == torch.float32:
+            tally_rejections(tally, D.contiguous(), out[0],
+                             chol_linv_reference)
+        return out
 
     def counted(self, K):
         factorizations[0] += 1
@@ -491,6 +529,13 @@ def k1_scenario_record(D, launches, per_factorization, chol_linv,
                               chol_linv_reference)
     times = k1_times(D, chol_linv, chol_linv_reference, 20)
     bound_ms, bound_by = k1_bound_ms(D.shape[0], D.shape[-1], D.dtype)
+    # the same blocks in f32 (the f32 step sets' scenario shape): device
+    # times and the blocks each version rejects
+    D32 = D.float().contiguous()
+    times32 = k1_times(D32, chol_linv, chol_linv_reference, 20)
+    bound32, _ = k1_bound_ms(D32.shape[0], D32.shape[-1], D32.dtype)
+    rejected = rejections()
+    tally_rejections(rejected, D32, chol_linv(D32)[0], chol_linv_reference)
     return {"shape": list(D.shape), "dtype": str(D.dtype),
             "launches_per_factorization": per_factorization,
             "launches": launches,
@@ -500,7 +545,11 @@ def k1_scenario_record(D, launches, per_factorization, chol_linv,
             "library_ms": times["library_device_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by,
             "event_ms": {k: times[k + "_event_ms"]
-                         for k in ("kernel", "plain", "library")}}
+                         for k in ("kernel", "plain", "library")},
+            "f32": {"ms": times32["kernel_device_ms"],
+                    "plain_ms": times32["plain_device_ms"],
+                    "library_ms": times32["library_device_ms"],
+                    "bound_ms": bound32, "blocks_rejected": rejected}}
 
 
 def determinism(tag, make_model):
@@ -603,7 +652,8 @@ def f32_phase(steps):
 def lowprec_quad_phase(chol_linv):
     """Phase 11: quad-1000 in each low-precision step set; returns the
     blocks of the last f32 band factorization of the "mixed" solve and that
-    solve's f32 K1 launches and f32 factorizations."""
+    solve's f32 K1 launches, f32 factorizations and the blocks K1 and its
+    plain version rejected in them."""
     from infiniteexamodels_jl_torch.backend import ExaTranscriptionBackend
     from infiniteexamodels_jl_torch.models import quad
     from infiniteexamodels_jl_torch.solvers.block_tridiag import (
@@ -618,9 +668,10 @@ def lowprec_quad_phase(chol_linv):
         m.set_transformation_backend(backend)
         backend.build(m)
         seen = blocks if fd == "mixed" else None
+        tally = rejections()
         res, first_s, launches, facts, by_dtype = solve_recorded(
             backend, m, chol_linv, seen, keep=len(QUAD1000_LEVELS),
-            dtype=torch.float32)
+            dtype=torch.float32, tally=tally)
         solver = backend.solver
         assert type(solver.kkt) is BlockTridiagKKT, type(solver.kkt)
         assert solver.kkt32 is not None and solver.kkt.mode == "band"
@@ -640,14 +691,15 @@ def lowprec_quad_phase(chol_linv):
             "objective": res.objective, "objective_rel_err": rel,
             "f32_until": handover, "f32_steps": n32, "f64_steps": n64,
             "k1_launches": launches, "by_dtype": by_dtype,
-            "factorizations": facts, "first_solve_s": first_s,
+            "factorizations": facts, "blocks_rejected_f32": tally,
+            "first_solve_s": first_s,
             "warm_resolve_s": warm_s, "warm_ms_per_step": ms,
             "jax_cpu_record": dict(zip(
                 ("status", "iterations", "objective", "f32_until", "by"),
                 record))}))
         if fd == "mixed":
             mixed = (by_dtype["k1"]["float32"],
-                     by_dtype["factor"]["float32"])
+                     by_dtype["factor"]["float32"], tally)
         del m, backend, solver
     assert tuple(D.shape[0] for D in blocks) == QUAD1000_LEVELS, [
         D.shape for D in blocks]
@@ -674,12 +726,13 @@ def backward_f32(D, chol_linv, chol_linv_reference):
             "blocks_the_plain_version_failed": int((~good).sum())}
 
 
-def k1_f32_record(blocks, launches, factorizations, chol_linv,
+def k1_f32_record(blocks, launches, factorizations, rejected, chol_linv,
                   chol_linv_reference, launch_plan):
     """Phase 12: K1 in f32 on the recorded real blocks (one band
     factorization, 11 levels): backward errors within 10x of the plain
     version's where it factors the block too, and the device times summed
-    over the levels."""
+    over the levels; ``rejected``: the blocks K1 and its plain version
+    rejected over the solve's f32 factorizations."""
     tot, worst = {}, {}
     bound_total = 0.0
     for D in blocks:
@@ -699,6 +752,7 @@ def k1_f32_record(blocks, launches, factorizations, chol_linv,
             "plan_344": launch_plan(64, torch.float32, 344)._asdict(),
             "launches": launches,
             "launches_per_factorization": launches / factorizations,
+            "blocks_rejected": rejected,
             "max_abs_err": worst["max_abs_err"],
             "max_rel_err": worst["max_rel_err"],
             "ms": tot["kernel_device_ms"], "plain_ms": tot["plain_device_ms"],
@@ -708,51 +762,55 @@ def k1_f32_record(blocks, launches, factorizations, chol_linv,
 
 
 def opf_mixed_phase(chol_linv, chol_linv_reference, launch_plan):
-    """Phase 13: opf-1000 with factor_dtype="mixed" in block_diag mode."""
+    """Phase 13: opf-1000 and opf-100 with factor_dtype="mixed" in
+    block_diag mode."""
     from infiniteexamodels_jl_torch.backend import ExaTranscriptionBackend
     from infiniteexamodels_jl_torch.models import opf
     from infiniteexamodels_jl_torch.solvers.block_tridiag import (
         BlockTridiagKKT)
-    status, iters, objective, last32, by = OPF1000_MIXED
-    m = opf(num_supports=1000)
-    backend = ExaTranscriptionBackend(timed_solver(), device="cuda",
-                                      linear_solver="auto", tol=1e-6,
-                                      factor_dtype="mixed", print_level=0)
-    m.set_transformation_backend(backend)
-    backend.build(m)
-    seen = []
-    res, first_s, launches, facts, by_dtype = solve_recorded(
-        backend, m, chol_linv, seen, dtype=torch.float32)
-    kkt = backend.solver.kkt
-    assert type(kkt) is BlockTridiagKKT, type(kkt)
-    assert (kkt.mode, kkt.nb, kkt.bs, kkt.mB) == ("block_diag", 1001, 24,
-                                                  6), (kkt.mode, kkt.nb)
-    # K1 in f32 on the blocks of the last f32 factorization
-    (D,) = seen
-    back = backward_f32(D, chol_linv, chol_linv_reference)
-    assert back["fact"] <= 10 * back["fact_plain"], back
-    assert back["inv"] <= 10 * back["inv_plain"], back
-    assert launches == facts, (launches, facts)
-    assert by_dtype["k1"] == by_dtype["factor"], by_dtype
-    assert by_dtype["k1"].get("float32", 0) > 0, by_dtype
-    assert res.status == "first_order", res.status
-    rel = abs(res.objective - objective) / abs(objective)
-    assert rel <= 1e-6, (res.objective, rel)
-    handover, n32, n64, ms = f32_phase(backend.solver.steps)
-    print(json.dumps({
-        "lowprec": "opf-1000", "factor_dtype": "mixed",
-        "status": res.status, "iterations": res.iter,
-        "objective": res.objective, "objective_rel_err": rel,
-        "f32_until": handover, "f32_steps": n32, "f64_steps": n64,
-        "k1_launches": launches, "by_dtype": by_dtype,
-        "factorizations": facts, "k1_launches_per_factorization":
-        launches / facts,
-        "plan_1001": launch_plan(24, torch.float32, 1001)._asdict(),
-        "k1_f32_last_blocks": back,
-        "first_solve_s": first_s, "ms_per_step": ms,
-        "jax_cpu_record": {"status": status, "iterations": iters,
-                           "objective": objective, "f32_until": last32,
-                           "by": by}}))
+    for S, (status, iters, objective, last32, by) in OPF_MIXED.items():
+        m = opf(num_supports=S)
+        backend = ExaTranscriptionBackend(timed_solver(), device="cuda",
+                                          linear_solver="auto", tol=1e-6,
+                                          factor_dtype="mixed",
+                                          print_level=0)
+        m.set_transformation_backend(backend)
+        backend.build(m)
+        seen, tally = [], rejections()
+        res, first_s, launches, facts, by_dtype = solve_recorded(
+            backend, m, chol_linv, seen, dtype=torch.float32, tally=tally)
+        kkt = backend.solver.kkt
+        assert type(kkt) is BlockTridiagKKT, type(kkt)
+        assert (kkt.mode, kkt.nb, kkt.bs, kkt.mB) == (
+            "block_diag", S + 1, 24, 6), (kkt.mode, kkt.nb)
+        # K1 in f32 on the blocks of the last f32 factorization
+        (D,) = seen
+        back = backward_f32(D, chol_linv, chol_linv_reference)
+        assert back["fact"] <= 10 * back["fact_plain"], back
+        assert back["inv"] <= 10 * back["inv_plain"], back
+        assert launches == facts, (launches, facts)
+        assert by_dtype["k1"] == by_dtype["factor"], by_dtype
+        assert by_dtype["k1"].get("float32", 0) > 0, by_dtype
+        assert res.status == "first_order", res.status
+        rel = abs(res.objective - objective) / abs(objective)
+        assert rel <= 1e-6, (res.objective, rel)
+        handover, n32, n64, ms = f32_phase(backend.solver.steps)
+        print(json.dumps({
+            "lowprec": f"opf-{S}", "factor_dtype": "mixed",
+            "status": res.status, "iterations": res.iter,
+            "objective": res.objective, "objective_rel_err": rel,
+            "f32_until": handover, "f32_steps": n32, "f64_steps": n64,
+            "k1_launches": launches, "by_dtype": by_dtype,
+            "factorizations": facts, "k1_launches_per_factorization":
+            launches / facts,
+            f"plan_{S + 1}": launch_plan(24, torch.float32,
+                                         S + 1)._asdict(),
+            "k1_f32_last_blocks": back, "blocks_rejected_f32": tally,
+            "first_solve_s": first_s, "ms_per_step": ms,
+            "jax_cpu_record": {"status": status, "iterations": iters,
+                               "objective": objective, "f32_until": last32,
+                               "by": by}}))
+        del m, backend, kkt, seen
 
 
 def ldl_phase():
@@ -1485,9 +1543,10 @@ def main():
     record["opf16000"] = scenario_phases(chol_linv, chol_linv_reference)
 
     # 11.-13. the low-precision step sets
-    blocks, (launches32, facts32) = lowprec_quad_phase(chol_linv)
-    record["f32"] = k1_f32_record(blocks, launches32, facts32, chol_linv,
-                                  chol_linv_reference, launch_plan)
+    blocks, (launches32, facts32, rejected) = lowprec_quad_phase(chol_linv)
+    record["f32"] = k1_f32_record(blocks, launches32, facts32, rejected,
+                                  chol_linv, chol_linv_reference,
+                                  launch_plan)
     del blocks
     opf_mixed_phase(chol_linv, chol_linv_reference, launch_plan)
 

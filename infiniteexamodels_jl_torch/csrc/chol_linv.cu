@@ -3,9 +3,26 @@
 // For each SPD block D[b] (n x n, row-major, n a multiple of 8, n <= 512)
 // computes the lower Cholesky factor L[b] (D = L L^T) and L^{-1}[b], both
 // with a zero strict upper triangle, and ok[b] = 1 when the factorization
-// succeeded and every entry of L^{-1}[b] is finite.  A block that is not
-// SPD (a pivot <= 0, NaN or inf) gets ok[b] = 0 and L, L^{-1} filled with
-// NaN, the contract of the reference's `_chol_linv`.
+// succeeded and every entry of L^{-1}[b] is finite.  A block whose pivot is
+// not safely positive gets ok[b] = 0 and L, L^{-1} filled with NaN, the
+// contract of the reference's `_chol_linv`.
+//
+// The pivot test.  The computed pivot p_j = D_jj - sum_{k<j} L_jk^2 is a
+// sum of at most n rounded terms, each at most D_jj in size, so it carries
+// a rounding error of about sqrt(n) u D_jj (u = eps/2, the dtype's unit
+// roundoff; the probabilistic error model of Higham and Mary, SIAM J. Sci.
+// Comput. 41(5), 2019).  A pivot at or below that is not resolved from
+// zero: LAPACK's potrf, which fails a block only when its own computed
+// pivot is <= 0, then fails or factors the block by the sign of its
+// round-off, and a factor it does pass is dominated by that round-off.
+// So a block fails here when some pivot is <= 0, NaN or inf (checked as
+// the diagonal tile is factored) or has
+//     p_j = L_jj^2 <= sqrt(n) * u * D_jj      (D_jj: the block's own entry)
+// (checked once the block is factored, from L's diagonal, off the chain of
+// dependent pivots): in f64 that is a pivot below ~5.4e-16 D_jj at n = 24
+// (8.9e-16 at n = 64), in f32 below ~2.9e-7 D_jj at n = 24 (4.8e-7 at
+// n = 64).  The wrapper states the same test (solvers/chol_linv.py
+// `pivot_threshold`).
 //
 // Replaces the TPU Pallas kernels `_chol_inv_kernel` (solvers/pallas_chol.py
 // :38, launched by `_chol_inv_call` :157) and `_chol_inv_kernel2` (:90,
@@ -25,8 +42,9 @@
 //   * the diagonal tile (k,k) is factored by one warp entirely in registers
 //     (every lane redundantly; one rsqrt per column gives both L[j][j] and
 //     its reciprocal) and inverted there: Dinv = L[k][k]^{-1}, which is
-//     also X[k][k] of X = L^{-1}.  Every pivot is checked here (<= 0, NaN,
-//     inf);
+//     also X[k][k] of X = L^{-1}.  Every pivot is checked here for <= 0,
+//     NaN and inf (the rest of the pivot test above runs once the block is
+//     factored);
 //   * phase A: TRSM of the panel, L[i][k] L[k][k]^T = A[i][k], and row k
 //     of X, L[k][k] X[k][j] = B[k][j] (j < k), both by forward substitution
 //     with one row or column of 8 per lane (a product with Dinv instead
@@ -79,6 +97,25 @@ __device__ __forceinline__ double nan_of(double) {
 }
 __device__ __forceinline__ float nan_of(float) {
   return __int_as_float(0x7fc00000);
+}
+
+// the unit roundoff u = eps / 2 of the pivot test
+__device__ __forceinline__ double unit_roundoff(double) { return 0x1p-53; }
+__device__ __forceinline__ float unit_roundoff(float) { return 0x1p-24f; }
+
+// The pivot test on a factored block: true when some L_jj^2 <= sqrt(n) u
+// D_jj (or is NaN), the same in every thread of the calling CTA (a
+// barrier).  Ld holds L with leading dimension ld, Db the block's D.
+template <typename T, class M>
+__device__ bool pivot_test_fails(const T* Ld, int ld,
+                                 const T* __restrict__ Db, int n) {
+  const T cn = sqrt(T(n)) * unit_roundoff(T(0));
+  int bad = 0;
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    const T l = M::ld(Ld + j * ld + j);
+    bad |= !(l * l > cn * Db[j * n + j]);
+  }
+  return __syncthreads_or(bad) != 0;
 }
 
 // Asynchronous copy of one element from device to shared memory.
@@ -390,7 +427,8 @@ chol_linv_smem_kernel(const T* __restrict__ D, T* __restrict__ L,
   team.sync();
   factor_block<T, SharedMem>(Ls, Xs, n, ld, team, &failed);
 
-  const bool bad = failed != 0;
+  const bool bad =
+      pivot_test_fails<T, SharedMem>(Ls, ld, Db, n) || failed != 0;
   int nonfinite = 0;
   for (int r = warp; r < n; r += nwarps)
     for (int c = lane; c < n; c += 32) {
@@ -438,7 +476,9 @@ chol_linv_cluster_kernel(const T* __restrict__ D, T* __restrict__ L,
   // only rank 0's warp 0 factors diagonal tiles, so only rank 0's flag moves
   factor_block<T, GlobalMem>(Lb, Xb, n, n, team, &failed);
 
-  const bool bad = *cluster.map_shared_rank(&failed, 0) != 0;
+  // every CTA of the cluster tests all of L's diagonal, so all agree
+  const bool bad = pivot_test_fails<T, GlobalMem>(Lb, n, Db, n) ||
+                   *cluster.map_shared_rank(&failed, 0) != 0;
   int nf = 0;
   for (int r = team.w; r < n; r += team.nw)
     for (int c = lane; c < n; c += 32) {

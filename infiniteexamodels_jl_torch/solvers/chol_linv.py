@@ -16,10 +16,24 @@ contiguous, ``n`` a multiple of 8 up to :data:`MAX_N`.  Returns
 ``(L, Linv, ok)`` with zero strict upper triangles; a block that is not SPD
 gets NaN in ``L`` and ``Linv``; ``ok`` is a 0-d bool tensor, true iff every
 block factored and every entry of ``Linv`` is finite.
+
+"Not SPD" is decided at the pivots.  The plain version takes LAPACK's test
+(a computed pivot <= 0).  The kernel fails a block when a pivot is not
+safely positive: ``p_j <= pivot_threshold(n, dtype) * D_jj``, where the
+threshold ``sqrt(n) u`` (u the unit roundoff) is the rounding error a
+computed pivot carries (the note at the top of the CUDA source derives
+it).  A pivot below it is round-off of either sign, which LAPACK's test
+passes or fails by chance; so the two versions agree on every block whose
+pivots sit clear of that band, and a block that one factors and the other
+fails has the factoring side's least pivot within :func:`pivot_margin`
+thresholds (the worst-case rounding error of a pivot, ``n u D_jj``, from
+either side).  :func:`scaled_pivots` reads a factor's least pivot in
+thresholds.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple
 
 import torch
@@ -41,6 +55,31 @@ CTA_THREADS = (256, 128, 64, 32)   # path "cta", most warps per block first
 CLUSTER_CTAS = 8          # CTAs that share one block on path "cluster"
 CLUSTER_CTAS_LARGE = 16   # ... above n = 256 (a non-portable cluster size)
 _PATH_IDS = {"cta": 1, "cluster": 2}
+
+
+def pivot_threshold(n, dtype):
+    """The kernel's pivot test: a block fails when some pivot ``p_j <=
+    pivot_threshold(n, dtype) * D_jj``, i.e. ``sqrt(n) u`` with ``u`` the
+    dtype's unit roundoff (eps / 2)."""
+    return math.sqrt(n) * torch.finfo(dtype).eps / 2
+
+
+def scaled_pivots(D, L):
+    """Per block, the least pivot ``L_jj^2`` over its threshold
+    ``pivot_threshold(n) * D_jj`` (in f64; NaN where ``L`` is NaN): above 1
+    the kernel's pivot test passes."""
+    n = D.shape[-1]
+    piv = torch.diagonal(L, dim1=-2, dim2=-1).double() ** 2
+    thr = torch.diagonal(D, dim1=-2, dim2=-1).double() * pivot_threshold(
+        n, D.dtype)
+    return (piv / thr).min(dim=-1).values
+
+
+def pivot_margin(n):
+    """How far above the threshold, in thresholds, a pivot may sit in a
+    block that one version factors and the other fails: twice the worst
+    rounding error of a pivot, ``2 n u D_jj``, over the threshold."""
+    return 2.0 * math.sqrt(n)
 
 
 class LaunchPlan(NamedTuple):

@@ -12,10 +12,11 @@ the package changes), once with K1.  In the K1 run the first ``--compare``
 f32 factorizations are also run through the plain version, and both are
 held against each other: blocks that failed (not SPD in f32) in each, the
 worst backward errors ||LL^T - D||/||D|| and ||L^{-1}L - I|| of the blocks
-both factored, the least eigenvalue of the blocks (in f64).  Prints one
-JSON line per run: status, iterations, objective, the host returns, and
-per step (f32 step set?, iteration, status, mu, the refinement residual,
-delta_w, line-search trials).
+both factored, K1's least pivots (``pivot_ratios``), the least eigenvalue
+of the blocks (in f64).  Prints one JSON line per run: status,
+iterations, objective, the host returns, and per step (f32 step set?,
+iteration, status, mu, the refinement residual, delta_w, line-search
+trials).
 """
 from __future__ import annotations
 
@@ -29,7 +30,8 @@ import torch
 from ..backend import ExaTranscriptionBackend
 from ..models import opf
 from ..solvers import IpmSolver, block_tridiag
-from ..solvers.chol_linv import chol_linv, chol_linv_reference
+from ..solvers.chol_linv import (chol_linv, chol_linv_reference,
+                                 pivot_threshold, scaled_pivots)
 
 
 def _backward(D, L, Linv):
@@ -40,8 +42,27 @@ def _backward(D, L, Linv):
     return fact, torch.linalg.matrix_norm(X @ L - eye)
 
 
+def pivot_ratios(D, L):
+    """Per block, the least pivot relative to its diagonal entry,
+    min_j L_jj^2 / D_jj, in units of the dtype's epsilon (NaN where L is
+    NaN)."""
+    n, eps = D.shape[-1], torch.finfo(D.dtype).eps
+    return scaled_pivots(D, L) * pivot_threshold(n, D.dtype) / eps
+
+
+def _quantiles(t):
+    if t.numel() == 0:
+        return None
+    q = torch.tensor([0.0, 0.01, 0.1, 0.5], dtype=t.dtype, device=t.device)
+    return [float(v) for v in torch.quantile(t, q)]
+
+
 def _compare(D):
-    """K1 against the plain version on one f32 factorization's blocks."""
+    """K1 against the plain version on one f32 factorization's blocks: the
+    blocks each rejected, the backward errors where both factor, and K1's
+    least pivot ratios (``pivot_ratios``: quantiles over the blocks only
+    K1 factors and over those both factor, and how many of the latter sit
+    under 1, 2, 4 and 8 epsilons)."""
     Lk, Xk, _ = chol_linv(D)
     Lp, Xp, _ = chol_linv_reference(D)
     fin_k = torch.isfinite(Xk).all(dim=(1, 2))
@@ -49,6 +70,7 @@ def _compare(D):
     both = fin_k & fin_p
     fk, ik = _backward(D, Lk, Xk)
     fp, ip = _backward(D, Lp, Xp)
+    ratio = pivot_ratios(D, Lk)
 
     def worst(t):
         return float(t[both].max()) if bool(both.any()) else None
@@ -59,6 +81,10 @@ def _compare(D):
             "failed_plain_only": int((fin_k & ~fin_p).sum()),
             "fact_k1": worst(fk), "fact_plain": worst(fp),
             "inv_k1": worst(ik), "inv_plain": worst(ip),
+            "k1_pivot_eps_plain_failed": _quantiles(ratio[fin_k & ~fin_p]),
+            "k1_pivot_eps_both": _quantiles(ratio[both]),
+            "both_under_eps": {c: int((ratio[both] <= c).sum())
+                               for c in (1, 2, 4, 8)},
             "min_eig": float(torch.linalg.eigvalsh(D.double())[:, 0].min())}
 
 

@@ -21,6 +21,18 @@ sweep points with run_examples' options.
 ``1 + EPS * N(0, 1)`` (numpy, seed K) before the solve: how far the JAX
 package's own result moves under a perturbation of the size of round-off
 (``--case`` picks one case of the set by name).
+
+A solve continued from another's state:
+
+    python -m tests.cpu_records --set pandemic --case pandemic-100x8 \
+        --checkpoint-at 352 --checkpoint st352.npz   # the JAX state at 352
+    python -m tests.cpu_records --set pandemic --case pandemic-100x8 \
+        --resume-from st352.npz [--package port] [--state-noise 1e-12 --seed K]
+
+``--checkpoint-at K`` stops the solve at the host return of iteration K
+and writes its state to ``--checkpoint`` (the packages share the format);
+``--resume-from`` continues a solve from such a state, with
+``--state-noise EPS`` multiplying its x by ``1 + EPS * N(0, 1)`` first.
 """
 from __future__ import annotations
 
@@ -82,6 +94,29 @@ def _cases(which, M):
     ]
 
 
+def _continued(solver, resume_from=None, save=None):
+    """``solver`` resuming from ``resume_from`` or writing its state at
+    ``save = (path, iteration)``."""
+    class Continued(solver):
+        def solve(self, *a, **k):
+            if resume_from is not None:
+                k["resume_from"] = resume_from
+            if save is not None:
+                k.update(checkpoint_path=save[0], checkpoint_every=save[1])
+            return super().solve(*a, **k)
+    return Continued
+
+
+def _noisy_state(path, eps, seed):
+    """A copy of the checkpoint at ``path`` with x times 1 + eps N(0, 1)."""
+    st = dict(np.load(path))
+    rng = np.random.default_rng(seed)
+    st["x"] = st["x"] * (1.0 + eps * rng.standard_normal(st["x"].shape))
+    out = f"{path}.noise{eps:g}.seed{seed}.npz"
+    np.savez(out, **st)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--set", choices=("examples", "kinetics", "pandemic",
@@ -90,7 +125,17 @@ def main(argv=None):
     ap.add_argument("--case", default=None)
     ap.add_argument("--x0-noise", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--checkpoint-at", type=int, default=None)
+    ap.add_argument("--checkpoint", default="checkpoint.npz")
+    ap.add_argument("--resume-from", default=None)
+    ap.add_argument("--state-noise", type=float, default=0.0)
     args = ap.parse_args(argv)
+    save = resume = None
+    if args.checkpoint_at is not None:
+        save = (args.checkpoint, args.checkpoint_at)
+    if args.resume_from is not None:
+        resume = (_noisy_state(args.resume_from, args.state_noise, args.seed)
+                  if args.state_noise else args.resume_from)
     pkg, models, extra = ((jpkg, jmodels, {}) if args.package == "jax"
                           else (tpkg, tmodels, dict(device="cpu")))
     for name, build, opts in _cases(args.set, models):
@@ -98,7 +143,16 @@ def main(argv=None):
             continue
         t0 = time.time()
         m = build()
-        b = pkg.ExaTranscriptionBackend(pkg.IpmSolver, **extra, **opts)
+        if save is not None:
+            opts = dict(opts, max_iter=save[1])
+        solver = pkg.IpmSolver
+        if save is not None or resume is not None:
+            solver = _continued(solver, resume, save)
+            name = (f"{name} to {save[1]}" if save is not None else
+                    f"{name} from {args.resume_from}"
+                    + (f" state-noise {args.state_noise} seed {args.seed}"
+                       if args.state_noise else ""))
+        b = pkg.ExaTranscriptionBackend(solver, **extra, **opts)
         m.set_transformation_backend(b)
         if args.x0_noise:
             b.build(m)

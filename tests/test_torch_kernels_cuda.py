@@ -16,8 +16,10 @@ import numpy as np
 import pytest
 import torch
 
+from infiniteexamodels_jl_torch.solvers import chol_linv as k1
 from infiniteexamodels_jl_torch.solvers.chol_linv import (
-    chol_linv, chol_linv_reference, launch_plan)
+    LaunchPlan, chol_linv, chol_linv_reference, launch_plan, pivot_margin,
+    pivot_threshold, scaled_pivots)
 
 SIZES = (8, 16, 24, 32, 40, 64, 120, 128, 144, 168, 176, 512)
 DTYPES = [(torch.float64, 1e-10), (torch.float32, 1e-4)]
@@ -155,3 +157,95 @@ def test_plan_launches_on_card(dtype):
                             device="cuda")
         _, _, ok = chol_linv(D)
         assert bool(ok), (n, launch_plan(n, dtype, 1))
+
+
+def _near_indefinite_batch(n, dtype, seed):
+    """Blocks ``L0 L0^T + p e_n e_n^T`` with ``L0`` lower triangular from a
+    seed (diagonal in [0.5, 1] but its last entry 0, entries below the
+    diagonal under 1 / n so that the leading part is well conditioned, the
+    last row of unit norm so that D_nn = 1), the product taken in extended
+    precision, then rounded to ``dtype``: the last pivot is p, set to s
+    thresholds (``pivot_threshold(n, dtype) * D_nn``) for 33 values of s
+    from -3 sqrt(n) to 3 sqrt(n).  Blocks with |s| <= ``pivot_margin(n)``
+    + 1 have a last pivot within round-off of the threshold or of zero,
+    whose computed sign depends on the order of the sums; the others are
+    clearly SPD or clearly not (farther from zero than any pivot's worst
+    rounding error, n u D_nn, plus the threshold).  Returns the blocks and
+    s."""
+    rng = np.random.default_rng(seed)
+    s = np.linspace(-3.0, 3.0, 33) * np.sqrt(n)
+    L0 = np.tril(rng.uniform(-1.0, 1.0, (s.size, n, n)), -1) / n
+    L0[:, np.arange(n), np.arange(n)] = rng.uniform(0.5, 1.0, (s.size, n))
+    L0[:, -1, -1] = 0.0
+    L0[:, -1] /= np.linalg.norm(L0[:, -1], axis=-1, keepdims=True)
+    Ll = L0.astype(np.longdouble)
+    D = np.einsum("bik,bjk->bij", Ll, Ll)
+    D[:, -1, -1] += s * pivot_threshold(n, dtype)
+    D = 0.5 * (D + D.transpose(0, 2, 1))
+    return torch.as_tensor(D.astype(np.float64), dtype=dtype), s
+
+
+def _launch(D, path):
+    """K1 on ``D`` through its C entry point on ``path`` ("cta": the
+    wrapper's plan; "cluster": 8 CTAs a block, whatever ``n``)."""
+    nb, n = D.shape[0], D.shape[-1]
+    plan = (launch_plan(n, D.dtype, nb) if path == "cta"
+            else LaunchPlan("cluster", 8, 256, 0, n))
+    assert plan.path == path
+    L, X = torch.empty_like(D), torch.empty_like(D)
+    okb = torch.empty(nb, dtype=torch.int32, device=D.device)
+    err = k1._kernel(D.dtype)(
+        D.data_ptr(), L.data_ptr(), X.data_ptr(), okb.data_ptr(), nb, n,
+        k1._PATH_IDS[plan.path], plan.ctas, plan.threads, plan.smem_bytes,
+        plan.ld, torch.cuda.current_stream().cuda_stream)
+    assert err == 0, err
+    return L, X, okb.bool()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["cta", "cluster"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [8, 24, 64])
+def test_pivot_test_on_near_indefinite_blocks(n, dtype, path):
+    """K1's pivot test (``chol_linv.pivot_threshold``: a block fails when
+    some pivot p_j <= sqrt(n) u D_jj) against LAPACK's (p_j <= 0, the
+    plain version) on blocks whose least pivot is round-off of either sign.
+    The clearly indefinite blocks fail in both, the clearly SPD ones
+    factor in both; in the band between, every block K1 factors passes its
+    test by its own pivots, every block it fails is NaN throughout, and a
+    block that one version factors and the other fails has the factoring
+    side's least pivot within ``pivot_margin(n)`` thresholds (the stated
+    margin: twice a pivot's worst-case rounding error)."""
+    _need_card()
+    D, t = _near_indefinite_batch(n, dtype, seed=1000 + n)
+    D = D.to("cuda").contiguous()
+    L, X, okb = _launch(D, path)
+    Lr, Xr, _ = chol_linv_reference(D)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(L).flatten(1).all(1) & \
+        torch.isfinite(X).flatten(1).all(1)
+    nan = torch.isnan(L).flatten(1).all(1) & torch.isnan(X).flatten(1).all(1)
+    fin_r = torch.isfinite(Lr).flatten(1).all(1)
+    assert torch.equal(okb, fin) and torch.equal(~okb, nan)
+    clear = np.abs(t) > pivot_margin(n) + 1
+    clear_bad = torch.as_tensor(clear & (t < 0))
+    clear_good = torch.as_tensor(clear & (t > 0))
+    assert bool(clear_bad.any()) and bool(clear_good.any())
+    assert not bool(okb[clear_bad].any()) and not bool(fin_r[clear_bad].any())
+    assert bool(okb[clear_good].all()) and bool(fin_r[clear_good].all())
+    rho = scaled_pivots(D, L).cpu()
+    rho_r = scaled_pivots(D, Lr).cpu()
+    okb, fin_r = okb.cpu(), fin_r.cpu()
+    assert bool((rho[okb] > 1 - 1e-3).all()), rho[okb].min()
+    margin = pivot_margin(n)
+    only_k1, only_plain = okb & ~fin_r, ~okb & fin_r
+    assert bool((rho[only_k1] <= margin).all()), rho[only_k1]
+    assert bool((rho_r[only_plain] <= margin).all()), rho_r[only_plain]
+    band = torch.as_tensor(~clear)
+    # the band exercises both outcomes of the test
+    assert bool(okb[band].any()) and bool((~okb[band]).any())
+    print({"n": n, "dtype": str(dtype), "path": path,
+           "k1_failed": int((~okb).sum()), "plain_failed":
+           int((~fin_r).sum()), "only_k1_factored": int(only_k1.sum()),
+           "only_plain_factored": int(only_plain.sum()),
+           "threshold": pivot_threshold(n, dtype)})

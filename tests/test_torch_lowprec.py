@@ -271,3 +271,93 @@ def test_rounded_f32_factor_in_both_packages(capsys):
                      torch.as_tensor(p["d"]), torch.as_tensor(p["diag"]))
     fac, ok = kkt.factor(K)
     assert bool(ok) and fac[1].dtype == torch.float32
+
+
+def _jax_trajectory(jm, fd):
+    """The JAX package's solve at tol 1e-8 in step set ``fd``, a step at a
+    time as its host loop takes them (the f32 chunk while no step has
+    demoted and mu at the last host return is above the switch, the f64
+    one after): a list of (f32 step set?, state in, state out) as numpy
+    dicts, ending with the step that leaves RUNNING for good."""
+    js = JIpmSolver(jm, linear_solver="auto", print_level=0, tol=1e-8,
+                    factor_dtype=fd)
+    consts = dict(js._compute_consts(jm.theta, jm))
+    consts["fam"] = jm.fam_tables()
+    consts["jac_rows"] = jm.jac_rows
+    consts["jac_cols"] = jm.jac_cols
+    y0s = jm.y0 * jm.sense * consts["sf"] / consts["sc"]
+    st = js._init_jit(jm.x0, y0s, consts)
+    mu_switch = js.opts["mu_switch_f32"]
+    demoted, mu_host, steps = False, float(st.mu), []
+    while True:
+        f32 = not demoted and mu_host > mu_switch
+        cur = {k: np.array(v) for k, v in st._asdict().items()}
+        st = (js._step32_jit if f32 else js._step_jit)(st, consts)
+        out = {k: np.array(v) for k, v in st._asdict().items()}
+        steps.append((f32, cur, out))
+        code = int(out["status"])
+        if code == DEMOTE_F32:
+            demoted, mu_host = True, float(out["mu"])
+            st = st._replace(status=jnp.asarray(RUNNING, jnp.int32))
+        elif code != RUNNING:
+            return steps
+        elif f32 and float(out["mu"]) <= mu_switch:
+            mu_host = float(out["mu"])
+
+
+def test_f32_bookkeeping_replays_jax_quad12_mixed():
+    """quad-12 "mixed" at tol 1e-8 against the JAX package's solve, step by
+    step.  The two packages' own solves part at iteration 2: the f32 band
+    factor of one cond-1.9e7 block comes out 12-14% from the exact one in
+    each package's LAPACK, and the directions part (JAX 14 iterations, f32
+    until a demotion at 5; the port 11, 3: JAX_RECORDS).  The bookkeeping
+    is the same: from every state of the JAX solve the port's step, in the
+    same step set, returns the same status (RUNNING, the demotion at 5,
+    first_order at 14) and the same regularization, and demotes for the
+    same cause (the factorization succeeded, the f32 refinement residual
+    stayed above refine_accept_f32); and the port's host loop, replaying
+    the JAX package's steps, returns to the host where the JAX package
+    does, hands over to f64 at 5 for a demotion and ends first_order in
+    14 iterations at the JAX package's objective."""
+    jm, tm = _both("quad12")
+    steps = _jax_trajectory(jm, "mixed")
+    want_iters, want_obj, want_end = JAX_RECORDS["quad12", "mixed"]
+    assert int(steps[-1][2]["iter"]) == want_iters
+    ts = IpmSolver(tm, linear_solver="auto", print_level=0, tol=1e-8,
+                   factor_dtype="mixed")
+    tc = ts._compute_consts(tm.theta, tm)
+    accept = ts.opts["refine_accept_f32"]
+    demotions = []
+    for f32, cur, want in steps:
+        got = state_to_numpy(ts._step(state_from_numpy(cur, "cpu"), tc,
+                                      ts.kkt32 if f32 else None))
+        assert int(got["status"]) == int(want["status"]), (
+            int(cur["iter"]), int(got["status"]), int(want["status"]))
+        assert float(got["log_delta_w"]) == pytest.approx(
+            float(want["log_delta_w"]), rel=1e-12)
+        if int(want["status"]) == DEMOTE_F32:
+            assert f32 and int(got["iter"]) == int(cur["iter"])
+            assert float(want["log_rr"]) > accept
+            assert float(got["log_rr"]) > accept
+            demotions.append(int(got["iter"]))
+    assert demotions == [want_end]
+
+    class Replayed(IpmSolver):
+        """The port's host loop over the JAX package's steps."""
+        replay = iter(steps)
+
+        def _step(self, st, consts, kkt=None):
+            f32, cur, out = next(Replayed.replay)
+            assert (kkt is self.kkt32) == f32
+            assert np.array_equal(st.x.numpy(), cur["x"])
+            return state_from_numpy(out, "cpu")
+
+    rs = Replayed(tm, linear_solver="auto", print_level=0, tol=1e-8,
+                  factor_dtype="mixed")
+    r = rs.solve()
+    assert next(Replayed.replay, None) is None
+    assert r.status == "first_order" and r.iter == want_iters
+    assert r.objective == pytest.approx(want_obj, rel=1e-12)
+    # the JAX package's own loop returns at its demotion and at the end
+    # (tests/torch_vs_jax_trajectory.py: host_returns [5, 14])
+    assert rs.host_returns == [want_end, want_iters]
