@@ -34,9 +34,9 @@ Phases (any failure raises and the script exits non-zero):
    ``block_diag`` mode with S + 1 blocks of 24 and a border of 6, K1
    launched once per factorization (launches and factorizations counted),
    ``first_order`` at the JAX CPU record's objective; build, first-solve
-   and warm re-solve times, K1 launches, peak device memory above what was
-   allocated before the case (after a ``gc.collect()``), and the
-   segment-sum plans' tables and entries.
+   and warm re-solve times, K1 launches, peak device memory over the build
+   and the first solve above what was allocated before the case (after a
+   ``gc.collect()``), and the segment-sum plans' tables and entries.
    The opf-16000 re-solve records the blocks of its last factorization;
 8. K1 on the recorded (16001, 24, 24) blocks: backward errors within 10x
    of the plain version's, kernel, plain and library device times; the
@@ -110,7 +110,23 @@ Phases (any failure raises and the script exits non-zero):
     ``families`` record of the kernels line).  With a border, every border
     factor the card computes is held against the same S factored in f64 on
     the host, and the bordered solve's backward error ||K x - r|| / ||r||
-    (through ``matvec``) of the last K is printed.
+    (through ``matvec``) of the last K is printed;
+18. the reference's ESCAPE34 sweep points (its ``run_cases`` harness;
+    ``infiniteexamodels_jl_torch.tools.run_cases`` runs the others):
+    quad-4000 and quad-16000 through the same backend -- ``BlockTridiagKKT``
+    band 2,750 x 64 and 11,000 x 64 with no border (asserted: a dense
+    fallback would factor an (n, n) matrix), K1 launched ceil(log2 nb) + 1
+    times in every factorization (13 and 15, counted), ``first_order``
+    within 1e-6 of the JAX CPU record, iterations printed beside the JAX
+    count; build, first-solve and warm re-solve seconds, iterations per
+    second and peak device memory above a baseline; K1 on the blocks of
+    quad-16000's last band factorization (backward errors within 10x of
+    the plain version's; kernel, plain, library and bound, the
+    ``escape34`` record of the kernels line); opf-4000 and opf-8000 as in
+    phase 7; pandemic (100,128) cut at 50 iterations as (100,32) in phase
+    17 (band 7,040 x 16 with a border of 110, 14 K1 launches a
+    factorization, every border factor held against the host's, the
+    iterate finite).
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  The script exits non-zero and prints no
@@ -460,18 +476,22 @@ def segsum_record(model, kkt):
             "segsum_table_entries": sum(p.entries for p in plans.values())}
 
 
-def scenario_solve(tag, m, record, bs, mB, chol_linv, seen=None):
-    """``m`` through the scenario KKT on the card: first solve with K1's
-    count read around it, then a warm re-solve (recording blocks when
-    ``seen`` is given).  Asserts the structure, K1's launches, the status
-    and the objective against the JAX CPU record; prints one line."""
+def structured_solve(tag, m, record, shape, per, chol_linv, seen=None,
+                     keep=1):
+    """``m`` through the band or scenario KKT on the card: a first solve
+    (K1's launches counted around it; peak device memory read over the
+    build and it, above what was allocated before, after a
+    ``gc.collect()``), then a warm re-solve (recording the blocks of its
+    last ``keep`` K1 calls into ``seen`` when given).  Asserts the KKT's
+    type and ``shape`` = (mode, nb, bs, mB) (a dense fallback would factor
+    an (n, n) matrix), ``per`` K1 launches in every factorization, and the
+    status and objective (within 1e-6 relative) of the JAX CPU ``record``
+    = (status, iterations, objective); prints one line and returns it."""
     from infiniteexamodels_jl_torch.backend import ExaTranscriptionBackend
     from infiniteexamodels_jl_torch.solvers import IpmSolver
     from infiniteexamodels_jl_torch.solvers.block_tridiag import (
         BlockTridiagKKT)
-    objective, cpu_iters = record
-    # what earlier phases left allocated (collected first) is the baseline
-    # the peak is read against
+    status, cpu_iters, objective = record
     gc.collect()
     torch.cuda.synchronize()
     baseline = torch.cuda.memory_allocated()
@@ -485,39 +505,36 @@ def scenario_solve(tag, m, record, bs, mB, chol_linv, seen=None):
     torch.cuda.synchronize()
     build_s = time.time() - t0
     # the first solve builds the solver and its KKT (structure analysis)
-    res, first_s, launches, factorizations, _ = solve_recorded(backend, m,
-                                                               chol_linv)
+    res, first_s, launches, facts, _ = solve_recorded(backend, m, chol_linv)
+    peak = torch.cuda.max_memory_allocated() - baseline
     kkt = backend.solver.kkt
-    # a dense fallback would factor an (n, n) matrix: never on this path
-    assert type(kkt) is BlockTridiagKKT, type(kkt)
-    nb = kkt.nb
-    assert (kkt.mode, kkt.bs, kkt.mB) == ("block_diag", bs, mB), (
-        kkt.mode, kkt.bs, kkt.mB)
-    assert launches > 0, launches
-    # block_diag factors every block in one K1 launch
-    per_factorization = launches / factorizations
-    assert per_factorization == 1, (launches, factorizations)
-    assert res.status == "first_order", (tag, res.status)
+    assert type(kkt) is BlockTridiagKKT, (tag, type(kkt))
+    assert (kkt.mode, kkt.nb, kkt.bs, kkt.mB) == shape, (
+        tag, kkt.mode, kkt.nb, kkt.bs, kkt.mB)
+    assert kkt.k1_launches_per_factorization() == per, tag
+    assert facts > 0 and launches == per * facts, (tag, launches, facts)
+    assert res.status == status, (tag, res.status)
     rel = abs(res.objective - objective) / abs(objective)
     assert rel <= 1e-6, (tag, res.objective, rel)
-    res2, warm_s, _, _, _ = solve_recorded(backend, m, chol_linv, seen)
-    peak = torch.cuda.max_memory_allocated()
-    assert res2.status == "first_order" and res2.iter == res.iter, (
-        res2.status, res2.iter)
-    print(json.dumps({
-        "scenario": tag, "nvar": backend.model.nvar,
-        "ncon": backend.model.ncon, "kkt": type(kkt).__name__,
-        "mode": kkt.mode, "nb": nb, "bs": kkt.bs, "mB": kkt.mB,
-        "status": res.status, "iterations": res.iter,
-        "reference_cpu_iterations": cpu_iters, "objective": res.objective,
-        "objective_rel_err": rel, "build_s": build_s,
-        "first_solve_s": first_s, "warm_resolve_s": warm_s,
-        "k1_launches": launches, "factorizations": factorizations,
-        "k1_launches_per_factorization": per_factorization,
-        "memory_baseline_bytes": baseline,
-        "peak_memory_above_baseline_bytes": peak - baseline,
-        **segsum_record(backend.model, kkt)}))
-    return nb, launches, per_factorization
+    res2, warm_s, _, _, _ = solve_recorded(backend, m, chol_linv, seen,
+                                           keep=keep)
+    assert (res2.status, res2.iter) == (res.status, res.iter), (
+        tag, res2.status, res2.iter)
+    line = {"case": tag, "nvar": backend.model.nvar,
+            "ncon": backend.model.ncon, "kkt": type(kkt).__name__,
+            "mode": kkt.mode, "nb": kkt.nb, "bs": kkt.bs, "mB": kkt.mB,
+            "status": res.status, "iterations": res.iter,
+            "jax_cpu_iterations": cpu_iters, "objective": res.objective,
+            "jax_cpu_objective": objective, "objective_rel_err": rel,
+            "build_s": build_s, "first_solve_s": first_s,
+            "warm_resolve_s": warm_s, "iters_per_s_warm": res.iter / warm_s,
+            "k1_launches": launches, "factorizations": facts,
+            "k1_launches_per_factorization": launches / facts,
+            "memory_baseline_bytes": baseline,
+            "peak_memory_above_baseline_bytes": peak,
+            **segsum_record(backend.model, kkt)}
+    print(json.dumps(line))
+    return line
 
 
 def k1_scenario_record(D, launches, per_factorization, chol_linv,
@@ -590,24 +607,26 @@ def scenario_phases(chol_linv, chol_linv_reference):
     from infiniteexamodels_jl_torch.models import farmer, opf
 
     # 7. scenario mode: opf-1000 and opf-16000 (the reference sweep's
-    # smallest and largest sizes)
+    # smallest and largest sizes); block_diag factors every block in one
+    # K1 launch
     for S in (1000, 16000):
         blocks = [] if S == 16000 else None
-        nb, launches, per_fact = scenario_solve(
-            f"opf-{S}", opf(num_supports=S), OPF_RECORDS[S], 24, 6,
-            chol_linv, blocks)
-        assert nb == S + 1, (S, nb)
+        objective, iters = OPF_RECORDS[S]
+        line = structured_solve(
+            f"opf-{S}", opf(num_supports=S),
+            ("first_order", iters, objective), ("block_diag", S + 1, 24, 6),
+            1, chol_linv, blocks)
     # 8. K1 on the recorded opf-16000 blocks (the last factorization of
     # the warm re-solve)
     (D,) = blocks
     assert tuple(D.shape) == (16001, 24, 24), D.shape
-    record = k1_scenario_record(D, launches, per_fact, chol_linv,
+    record = k1_scenario_record(D, line["k1_launches"], 1, chol_linv,
                                 chol_linv_reference)
     del blocks, D
     # 9. farmer-1000, the reference's default size
-    nb, _, _ = scenario_solve("farmer-1000", farmer(num_scenarios=1000),
-                           FARMER1000, 8, 3, chol_linv)
-    assert nb == 1000, nb
+    structured_solve("farmer-1000", farmer(num_scenarios=1000),
+                     ("first_order", FARMER1000[1], FARMER1000[0]),
+                     ("block_diag", 1000, 8, 3), 1, chol_linv)
     # 10. determinism: two opf-1000 solves
     determinism("opf-1000", lambda: opf(num_supports=1000))
     return record
@@ -1228,10 +1247,12 @@ FAMILY_RECORDS = {
 KINETICS50_ROUTES = {"auto": (41, 0.6202467804743852),
                      "dense": (31, 0.6202467178443798),
                      "ldl_cpp": (47, 0.6202478852440209)}
-# (100,32) runs cut at this many iterations in phase 17 (its path: the
-# band KKT with a border of 110); the certificate itself (900 iterations)
-# runs through tools/profile.py --certificate (PERF.md)
-PANDEMIC100x32_MAX_ITER = 120
+# cases run cut at this many iterations, their path checked and not their
+# result: (100,32) in phase 17 (the band KKT with a border of 110; the
+# certificate itself, 900 iterations, runs through tools/profile.py
+# --certificate, PERF.md) and (100,128) in phase 18 (band 7,040 x 16 with
+# a border of 110; the JAX package does not certify it)
+CUT_AT = {"pandemic-100x32": 120, "pandemic-100x128": 50}
 # case: (builder, its arguments, solver options, (mode, nb, bs, mB),
 # K1 launches per factorization (BCR levels + 1), warm re-solve?)
 FAMILY_CASES = {
@@ -1251,10 +1272,17 @@ FAMILY_CASES = {
     # (the elastic cap's v_imax widens the blocks to 24)
     "pandemic-100x32": ("pandemic", dict(num_supports=100, num_scenarios=32,
                                          elastic_rho=500.0),
-                        dict(max_iter=PANDEMIC100x32_MAX_ITER,
+                        dict(max_iter=CUT_AT["pandemic-100x32"],
                              dual_init="lsq", recalc_y_stall=True),
                         ("band", 1320, 24, 110), 12, False),
+    # phase 18: the sweep's largest pandemic point with run_cases' options
+    # (the longest bordered band the port runs)
+    "pandemic-100x128": ("pandemic", dict(num_supports=100,
+                                          num_scenarios=128),
+                         dict(max_iter=CUT_AT["pandemic-100x128"]),
+                         ("band", 7040, 16, 110), 14, False),
 }
+PHASE17 = tuple(FAMILY_CASES)[:-1]
 
 
 def family_checks(tag, m, res):
@@ -1263,14 +1291,15 @@ def family_checks(tag, m, res):
     (100,8)'s iteration bound, which is returned (met or not) and printed
     beside the case."""
     import numpy as np
-    status, _, objective = FAMILY_RECORDS[tag]
     obj = m.objective_value()
-    if tag == "pandemic-100x32":
-        # cut at PANDEMIC100x32_MAX_ITER: the path (band KKT with its
-        # border) is held, not the certificate
-        assert res.iter == PANDEMIC100x32_MAX_ITER, (tag, res.iter)
+    if tag in CUT_AT:
+        # cut: the path (band KKT with its border) is held, and the iterate
+        # stays finite; not the result
+        assert res.iter == CUT_AT[tag], (tag, res.iter)
         assert math.isfinite(obj) and math.isfinite(res.primal_feas)
+        assert np.isfinite(np.asarray(res.solution)).all(), tag
         return {}
+    status, _, objective = FAMILY_RECORDS[tag]
     assert res.status == status, (tag, res.status)
     if tag == "kinetics-50":
         rel = min(abs(obj - o) / abs(o) for _, o in KINETICS50_ROUTES.values())
@@ -1362,9 +1391,9 @@ def bordered_residual(kkt, K, seed=0):
     return bool(ok), float(res / torch.linalg.vector_norm(r))
 
 
-def family_phase(chol_linv, chol_linv_reference, cases=None):
-    """Phase 17: every case of FAMILY_CASES (or of ``cases``) on the card;
-    returns K1's records on their paths."""
+def family_phase(chol_linv, chol_linv_reference, cases=PHASE17):
+    """Phase 17: the ``cases`` of FAMILY_CASES on the card; returns K1's
+    records on their paths."""
     from infiniteexamodels_jl_torch import models
     from infiniteexamodels_jl_torch.backend import ExaTranscriptionBackend
     from infiniteexamodels_jl_torch.solvers import IpmSolver
@@ -1372,7 +1401,7 @@ def family_phase(chol_linv, chol_linv_reference, cases=None):
         BlockTridiagKKT)
     t_phase = time.time()
     records = {}
-    for tag in cases or FAMILY_CASES:
+    for tag in cases:
         name, kw, opts, shape, per, warm = FAMILY_CASES[tag]
         t0 = time.time()
         m = getattr(models, name)(**kw)
@@ -1399,6 +1428,7 @@ def family_phase(chol_linv, chol_linv_reference, cases=None):
         # every factorization of the solve launched K1 ``per`` times
         assert facts > 0 and launches == per * facts, (tag, launches, facts)
         unmet = family_checks(tag, m, res)
+        record = FAMILY_RECORDS.get(tag)
         warm_s = None
         if warm:
             res2, warm_s, _, _, _ = solve_recorded(backend, m, chol_linv)
@@ -1409,12 +1439,10 @@ def family_phase(chol_linv, chol_linv_reference, cases=None):
                 "bs": kkt.bs, "mB": kkt.mB, "status": res.status,
                 "iterations": res.iter, "objective": res.objective,
                 "primal_feas": res.primal_feas, "dual_feas": res.dual_feas,
-                "jax_cpu_record": dict(zip(("status", "iterations",
-                                            "objective"),
-                                           FAMILY_RECORDS[tag])),
-                "objective_rel_err": abs(res.objective
-                                         - FAMILY_RECORDS[tag][2])
-                / abs(FAMILY_RECORDS[tag][2]),
+                "jax_cpu_record": record and dict(zip(
+                    ("status", "iterations", "objective"), record)),
+                "objective_rel_err": record and abs(
+                    res.objective - record[2]) / abs(record[2]),
                 "build_s": build_s, "first_solve_s": first_s,
                 "warm_resolve_s": warm_s,
                 "ms_per_iteration_first": 1e3 * first_s / max(res.iter, 1),
@@ -1445,16 +1473,98 @@ def family_phase(chol_linv, chol_linv_reference, cases=None):
     return records
 
 
+# phase 18: the reference's ESCAPE34 sweep points (SURVEY.md §6; its
+# run_cases harness, benchmarks/run_cases.py, and the port's
+# infiniteexamodels_jl_torch.tools.run_cases).  Records: the JAX package on
+# the host CPU with run_cases' options (linear_solver="auto", tol=1e-6, the
+# default max_iter) -- (status, iterations, objective, nvar, ncon), by
+# `python -m tests.cpu_records --set escape34`.  Phase 18 runs quad-4000,
+# quad-16000 and the opf points; the rest run through tools/run_cases.py
+# (PERF.md).
+ESCAPE34_RECORDS = {
+    "quad-2000": ("first_order", 11, 568.7941963097398, 87978, 79978),
+    "quad-4000": ("first_order", 10, 568.7745032138869, 175978, 159978),
+    "quad-8000": ("first_order", 10, 568.7654566958233, 351978, 319978),
+    "quad-16000": ("first_order", 12, 568.761122769237, 703978, 639978),
+    "opf-2000": ("first_order", 24, 5744.482319094539, 48024, 68028),
+    "opf-4000": ("first_order", 15, 5744.482320161422, 96024, 136028),
+    "opf-8000": ("first_order", 15, 5744.482319908405, 192024, 272028),
+    "pandemic-25x4": ("acceptable", 1956, 28.568798018928202, 1155, 1260),
+    "pandemic-50x4": ("first_order", 306, 29.088918210131872, 1980, 2160),
+    "pandemic-100x4": ("acceptable", 1062, 29.746498048935724, 3630,
+                       3960),
+    # as phase 17's record: max_iter does not bind
+    "pandemic-100x8": ("acceptable", 454, 30.346450404717153, 7150, 7920),
+}
+# quad supports -> band blocks of 64 (the band KKT, no border)
+ESCAPE34_QUAD = {4000: 2750, 16000: 11000}
+# opf-2000 is left out: on the card its f64 endgame crawls (alpha ~2e-4 a
+# step from iteration 18 on) through blocks K1 factors within round-off
+# of singular, where the plain version rejects one and escapes (ROADMAP
+# 3.7; tools/k1_f32_crawl.py --size 2000 --factor-dtype float64)
+ESCAPE34_OPF = (4000, 8000)
+
+
+def bcr_levels(nb):
+    """The blocks of each K1 launch of one band factorization of ``nb``
+    blocks: the odd blocks of every BCR level, then the root."""
+    out = []
+    while nb > 1:
+        out.append(nb // 2)
+        nb = (nb + 1) // 2
+    return tuple(out) + (1,)
+
+
+def escape34_phase(chol_linv, chol_linv_reference):
+    """Phase 18: quad-4000 and quad-16000 through the band KKT, K1 on
+    quad-16000's recorded blocks, opf-4000 and opf-8000 through the
+    scenario KKT, and pandemic (100,128) cut at 50 iterations; returns K1's
+    records on quad-16000's and (100,128)'s paths."""
+    from infiniteexamodels_jl_torch.models import opf, quad
+    t_phase = time.time()
+    record = {}
+    for n, nb in ESCAPE34_QUAD.items():
+        tag = f"quad-{n}"
+        status, iters, objective, nvar, ncon = ESCAPE34_RECORDS[tag]
+        seen = [] if n == 16000 else None
+        per = len(bcr_levels(nb))
+        assert per == math.ceil(math.log2(nb)) + 1, (nb, per)
+        line = structured_solve(tag, quad(num_supports=n),
+                                (status, iters, objective),
+                                ("band", nb, 64, 0), per, chol_linv, seen,
+                                keep=per)
+        assert (line["nvar"], line["ncon"]) == (nvar, ncon), line
+    launches = line["k1_launches"]
+    # K1 on the blocks of quad-16000's last band factorization
+    assert tuple(D.shape[0] for D in seen) == bcr_levels(11000), [
+        D.shape for D in seen]
+    rec = k1_main_path_record(seen, chol_linv, chol_linv_reference,
+                              launches, tag="quad16000")
+    record["quad16000"] = {"shapes": [list(D.shape) for D in seen],
+                           "launches_per_factorization": len(seen),
+                           **{k: rec[k] for k in (
+                               "launches", "max_abs_err", "max_rel_err",
+                               "ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms", "event_ms")}}
+    del seen
+    for S in ESCAPE34_OPF:
+        status, iters, objective, nvar, ncon = ESCAPE34_RECORDS[f"opf-{S}"]
+        line = structured_solve(f"opf-{S}", opf(num_supports=S),
+                                (status, iters, objective),
+                                ("block_diag", S + 1, 24, 6), 1, chol_linv)
+        assert (line["nvar"], line["ncon"]) == (nvar, ncon), line
+    record.update(family_phase(chol_linv, chol_linv_reference,
+                               cases=("pandemic-100x128",)))
+    print(json.dumps({"escape34_phase_s": time.time() - t_phase}))
+    return record
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 1
-    from infiniteexamodels_jl_torch.backend import ExaTranscriptionBackend
     from infiniteexamodels_jl_torch.models import quad
-    from infiniteexamodels_jl_torch.solvers import IpmSolver
-    from infiniteexamodels_jl_torch.solvers.block_tridiag import (
-        BlockTridiagKKT)
     from infiniteexamodels_jl_torch.solvers.chol_linv import (
         chol_linv, chol_linv_reference, launch_plan)
     from infiniteexamodels_jl_torch.utils import host_build
@@ -1485,59 +1595,24 @@ def main():
     worst = k1_phase(chol_linv, chol_linv_reference, launch_plan)
     print(json.dumps({"k1_worst_rel_err": worst}))
 
-    # 4. the main path: quad-1000 on the card
-    t0 = time.time()
-    m = quad(num_supports=1000)
-    backend = ExaTranscriptionBackend(IpmSolver, device="cuda",
-                                      linear_solver="auto", tol=1e-6,
-                                      print_level=5)
-    m.set_transformation_backend(backend)
-    backend.build(m)
-    build_s = time.time() - t0
-    res, first_s, launches, factorizations, _ = solve_recorded(backend, m,
-                                                               chol_linv)
-    kkt = backend.solver.kkt
-    assert type(kkt) is BlockTridiagKKT, type(kkt)
-    assert kkt.mode == "band" and kkt.nb == 688 and kkt.bs == 64, (
-        kkt.mode, kkt.nb, kkt.bs)
-    assert launches > 0, launches
-    # one K1 launch per BCR level
-    per_factorization = launches / factorizations
-    assert per_factorization == len(QUAD1000_LEVELS), (launches,
-                                                       factorizations)
-    assert res.status == "first_order", res.status
-    rel = abs(res.objective - QUAD1000_OBJECTIVE) / QUAD1000_OBJECTIVE
-    assert rel <= 1e-6, (res.objective, rel)
-    first_iters = res.iter
-    # the re-solve (with the built solver) also records the blocks of every
-    # K1 call: the last 11 are the last band factorization of the solve (a
-    # late iteration)
+    # 4. the main path: quad-1000 on the card, one K1 launch per BCR
+    # level; the warm re-solve records the blocks of every K1 call, the
+    # last 11 being its last band factorization (a late iteration)
     seen = []
-    res2, warm_s, _, _, _ = solve_recorded(backend, m, chol_linv, seen,
-                                           keep=len(QUAD1000_LEVELS))
+    line = structured_solve("quad-1000", quad(num_supports=1000),
+                            ("first_order", 10, QUAD1000_OBJECTIVE),
+                            ("band", 688, 64, 0), len(QUAD1000_LEVELS),
+                            chol_linv, seen, keep=len(QUAD1000_LEVELS))
     assert tuple(D.shape[0] for D in seen) == QUAD1000_LEVELS, [
         D.shape for D in seen]
-    assert res2.status == "first_order" and res2.iter == first_iters
-    print(json.dumps({
-        "main_path": "quad-1000", "nvar": backend.model.nvar,
-        "ncon": backend.model.ncon, "kkt": type(kkt).__name__,
-        "mode": kkt.mode, "nb": kkt.nb, "bs": kkt.bs,
-        "status": res.status, "iterations": first_iters,
-        "reference_cpu_iterations": 10, "objective": res.objective,
-        "objective_rel_err": rel, "build_s": build_s,
-        "first_solve_s": first_s, "warm_resolve_s": warm_s,
-        "iters_per_s_warm": first_iters / warm_s,
-        "k1_launches": launches, "factorizations": factorizations,
-        "k1_launches_per_factorization": per_factorization,
-        **segsum_record(backend.model, kkt)}))
 
     # 5. determinism: two quad-200 solves, every iterate bit-identical
     determinism("quad-200", lambda: quad(num_supports=200))
 
     # 6. K1 on the recorded quad-1000 blocks; the kernels line
     record = k1_main_path_record(seen, chol_linv, chol_linv_reference,
-                                 launches)
-    del m, backend, kkt, seen
+                                 line["k1_launches"])
+    del seen
 
     # 7.-10. scenario mode
     record["opf16000"] = scenario_phases(chol_linv, chol_linv_reference)
@@ -1560,6 +1635,9 @@ def main():
 
     # 17. the families no earlier phase runs
     record["families"] = family_phase(chol_linv, chol_linv_reference)
+
+    # 18. the reference's ESCAPE34 sweep points
+    record["escape34"] = escape34_phase(chol_linv, chol_linv_reference)
 
     print(json.dumps({"elapsed_s": time.time() - t_start}))
     print(card_line())        # again here: the head of a long log is cut

@@ -95,13 +95,76 @@ class ParameterGroup:
         """Merge new scalar supports keeping sorted order; duplicates get the
         extra label.  Adding public supports drops any existing generative
         (internal) nodes -- they are regenerated at the next build so the
-        collocation layout stays consistent."""
+        collocation layout stays consistent.
+
+        The result is that of inserting ``values`` one at a time, each
+        matched against its sorted neighbours within 1e-12: computed by one
+        sort (O(n log n)) wherever the order of insertion cannot change it,
+        else one value at a time."""
         if not self.scalar:
             raise ValueError("add_supports on a dependent parameter group")
         values = np.atleast_1d(np.asarray(values, dtype=np.float64))
         if self._supports is None:
             self._supports = np.zeros(0)
             self._labels = []
+        merged = self._merge_supports(values, label)
+        if merged is None:
+            merged = self._insert_supports(values, label)
+        supps, labels, inserted = merged
+        if inserted and label not in INTERNAL_LABELS and self.has_internal:
+            # a genuinely new public support invalidates the generative
+            # (collocation) nodes; drop them for regeneration at next build
+            keep = [i for i, s in enumerate(labels) if s - INTERNAL_LABELS]
+            supps = supps[keep]
+            labels = [labels[i] - INTERNAL_LABELS or {label}
+                      for i in keep]
+            self.has_internal = False
+            self._generative_done = False
+        self._supports = np.asarray(supps, dtype=np.float64)
+        self._labels = labels
+        if label in INTERNAL_LABELS:
+            self.has_internal = True
+        else:
+            self._generative_done = self._generative_done and not inserted
+        if inserted:
+            self.model._mark_dirty()
+
+    def _merge_supports(self, values, label):
+        """The insertions as one sort: (supports, labels, inserted?), or
+        None where the order of insertion matters.  Old and new values are
+        sorted together and cut where neighbours lie 1e-12 or more apart.
+        A cluster narrower than 1e-12 holds at most one old support (they
+        lie 1e-12 apart); its new values all match that support, or, with
+        none, the first of them in input order, which is inserted.  A wider
+        cluster (or a NaN) returns None."""
+        old = np.asarray(self._supports, dtype=np.float64)
+        every = np.concatenate([old, values])
+        if np.isnan(every).any() or np.any(np.diff(old) < 1e-12):
+            return None
+        order = np.argsort(every, kind="stable")
+        srt = every[order]
+        start = np.ones(len(srt), dtype=bool)
+        start[1:] = np.diff(srt) >= 1e-12
+        first = np.flatnonzero(start)
+        last = np.append(first[1:], len(srt)) - 1
+        if np.any(srt[last] - srt[first] >= 1e-12):
+            return None
+        # each cluster's survivor: its old support, else its first new value
+        rep = np.minimum.reduceat(order, first) if len(srt) else order
+        sizes = last - first + 1
+        labels = []
+        for r, k in zip(rep.tolist(), sizes.tolist()):
+            if r < len(old):
+                lab = self._labels[r]
+                if k > 1:
+                    lab.add(label)
+            else:
+                lab = {label}
+            labels.append(lab)
+        return every[rep], labels, bool(np.any(rep >= len(old)))
+
+    def _insert_supports(self, values, label):
+        """The insertions one at a time: (supports, labels, inserted?)."""
         supps = list(self._supports)
         labels = list(self._labels)
         inserted = False
@@ -115,23 +178,7 @@ class ParameterGroup:
                 supps.insert(pos, float(v))
                 labels.insert(pos, {label})
                 inserted = True
-        if inserted and label not in INTERNAL_LABELS and self.has_internal:
-            # a genuinely new public support invalidates the generative
-            # (collocation) nodes; drop them for regeneration at next build
-            keep = [i for i, s in enumerate(labels) if s - INTERNAL_LABELS]
-            supps = [supps[i] for i in keep]
-            labels = [labels[i] - INTERNAL_LABELS or {label}
-                      for i in keep]
-            self.has_internal = False
-            self._generative_done = False
-        self._supports = np.asarray(supps)
-        self._labels = labels
-        if label in INTERNAL_LABELS:
-            self.has_internal = True
-        else:
-            self._generative_done = self._generative_done and not inserted
-        if inserted:
-            self.model._mark_dirty()
+        return np.asarray(supps, dtype=np.float64), labels, inserted
 
     def ensure_generative_supports(self):
         """Add the derivative method's internal nodes (the reference's

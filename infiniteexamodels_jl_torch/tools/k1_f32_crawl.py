@@ -2,7 +2,7 @@
 version in K1's place.
 
     python -m infiniteexamodels_jl_torch.tools.k1_f32_crawl [--size 1000]
-        [--compare 12]
+        [--compare 12] [--factor-dtype mixed|float64] [--max-iter 3000]
 
 Solves ``opf(num_supports=size)`` through ``ExaTranscriptionBackend(
 IpmSolver, linear_solver="auto", tol=1e-6, factor_dtype="mixed")`` twice:
@@ -13,10 +13,11 @@ f32 factorizations are also run through the plain version, and both are
 held against each other: blocks that failed (not SPD in f32) in each, the
 worst backward errors ||LL^T - D||/||D|| and ||L^{-1}L - I|| of the blocks
 both factored, K1's least pivots (``pivot_ratios``), the least eigenvalue
-of the blocks (in f64).  Prints one JSON line per run: status,
-iterations, objective, the host returns, and per step (f32 step set?,
-iteration, status, mu, the refinement residual, delta_w, line-search
-trials).
+of the blocks (in f64).  With ``--factor-dtype float64`` the solves run
+the f64 step set and the f64 factorizations are compared the same way.
+Prints one JSON line per run: status, iterations, objective, the host
+returns, and per step (f32 step set?, iteration, status, mu, the
+refinement residual, delta_w, line-search trials).
 """
 from __future__ import annotations
 
@@ -58,7 +59,7 @@ def _quantiles(t):
 
 
 def _compare(D):
-    """K1 against the plain version on one f32 factorization's blocks: the
+    """K1 against the plain version on one factorization's blocks: the
     blocks each rejected, the backward errors where both factor, and K1's
     least pivot ratios (``pivot_ratios``: quantiles over the blocks only
     K1 factors and over those both factor, and how many of the latter sit
@@ -102,14 +103,15 @@ class _Logged(IpmSolver):
         return st
 
 
-def run(size, plain, compare):
+def run(size, plain, compare, factor_dtype="mixed", max_iter=3000):
     k1 = block_tridiag._chol_linv
-    f32_calls, cmp = [0], []
+    dtype = torch.float64 if factor_dtype == "float64" else torch.float32
+    calls, cmp = [0], []
 
     def hook(D):
-        if D.dtype == torch.float32:
-            f32_calls[0] += 1
-            if not plain and f32_calls[0] <= compare:
+        if D.dtype == dtype:
+            calls[0] += 1
+            if not plain and calls[0] <= compare:
                 cmp.append(_compare(D.contiguous()))
         return chol_linv_reference(D.contiguous()) if plain else k1(D)
 
@@ -117,8 +119,8 @@ def run(size, plain, compare):
     try:
         m = opf(num_supports=size)
         backend = ExaTranscriptionBackend(_Logged, linear_solver="auto",
-                                          tol=1e-6, factor_dtype="mixed",
-                                          print_level=0)
+                                          tol=1e-6, factor_dtype=factor_dtype,
+                                          max_iter=max_iter, print_level=0)
         m.set_transformation_backend(backend)
         backend.build(m)
         chol_linv.launches = 0
@@ -129,10 +131,11 @@ def run(size, plain, compare):
         block_tridiag._chol_linv = k1
     return {"k1": "plain" if plain else "kernel", "status": res.status,
             "iterations": res.iter, "objective": res.objective,
-            "solve_s": secs, "f32_factorizations": f32_calls[0],
+            "solve_s": secs, "compared_dtype": str(dtype),
+            "factorizations_of_dtype": calls[0],
             "k1_launches": chol_linv.launches,
             "host_returns": backend.solver.host_returns,
-            "compare_first_f32": cmp,
+            "compare_first": cmp,
             "steps_cols": "f32,iter,status,mu,rr,delta_w,ls",
             "steps": backend.solver.log}
 
@@ -141,12 +144,16 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--size", type=int, default=1000)
     ap.add_argument("--compare", type=int, default=12)
+    ap.add_argument("--factor-dtype", choices=("mixed", "float64"),
+                    default="mixed")
+    ap.add_argument("--max-iter", type=int, default=3000)
     args = ap.parse_args(argv)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
     for plain in (True, False):
-        print(json.dumps(run(args.size, plain, args.compare)), flush=True)
+        print(json.dumps(run(args.size, plain, args.compare,
+                             args.factor_dtype, args.max_iter)), flush=True)
 
 
 if __name__ == "__main__":

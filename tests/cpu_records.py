@@ -1,21 +1,28 @@
-"""The JAX package's records on the host CPU that chip_smoke phase 17 and
-PERF.md hold the port against (and, with ``--package port``, the port's
-on the same CPU).
+"""The JAX package's records on the host CPU that chip_smoke phases 17
+and 18 and PERF.md hold the port against (and, with ``--package port``,
+the port's on the same CPU).
 
     python -m tests.cpu_records --set examples   # examples/run_examples.py
     python -m tests.cpu_records --set kinetics   # kinetics-50, three routes
     python -m tests.cpu_records --set pandemic   # the slow tests' options
     python -m tests.cpu_records --set sweep      # pandemic (25,4)..(100,8)
+    python -m tests.cpu_records --set escape34   # the ESCAPE34 sweep points
 
 Each case is one JSON line: status, iterations, objective (full
-precision), primal and dual feasibility, wall seconds and the KKT's mode
-and shape.  ``examples`` solves examples/run_examples.py's seven cases with
-its options (``linear_solver="auto"``, tol 1e-6, max_iter 600);
+precision), primal and dual feasibility, nvar, ncon, wall seconds and the
+KKT's mode and shape.  ``examples`` solves examples/run_examples.py's seven
+cases with its options (``linear_solver="auto"``, tol 1e-6, max_iter 600);
 ``kinetics`` solves kinetics-50 with those options through the JAX
 package's three exact KKT routes (``"auto"``, ``"dense"``, ``"ldl_cpp"``);
 ``pandemic`` the three slow pandemic tests of tests/test_models.py with
 their options ((100,32) takes hours); ``sweep`` the reference's pandemic
-sweep points with run_examples' options.
+sweep points with run_examples' options; ``escape34`` the reference's
+ESCAPE34 sweep points that chip_smoke phase 18 and
+``infiniteexamodels_jl_torch.tools.run_cases`` hold the port to (quad
+2,000-16,000 supports, opf 2,000-8,000 scenarios, pandemic (25,4), (50,4),
+(100,4) and (100,8)) with the options of benchmarks/run_cases.py's
+``solve_one`` (``linear_solver="auto"``, tol 1e-6, the default
+``max_iter``).  No tier-1 test runs a set; ``--case`` runs one case.
 
 ``--x0-noise EPS --seed K`` multiplies every start value by
 ``1 + EPS * N(0, 1)`` (numpy, seed K) before the solve: how far the JAX
@@ -55,6 +62,18 @@ from infiniteexamodels_jl_torch.solvers.block_tridiag import (  # noqa: E402
     BlockTridiagKKT as TBlockKKT)
 
 EXAMPLES = dict(linear_solver="auto", print_level=0, tol=1e-6, max_iter=600)
+RUN_CASES = dict(linear_solver="auto", print_level=0, tol=1e-6)
+ESCAPE34 = ([("quad", n) for n in (2000, 4000, 8000, 16000)]
+            + [("opf", s) for s in (2000, 4000, 8000)]
+            + [("pandemic", p) for p in ((25, 4), (50, 4), (100, 4),
+                                         (100, 8))])
+
+
+def escape34_name(model, size):
+    """quad-2000, opf-2000, pandemic-25x4."""
+    if model == "pandemic":
+        return f"pandemic-{size[0]}x{size[1]}"
+    return f"{model}-{size}"
 
 
 def _cases(which, M):
@@ -73,6 +92,14 @@ def _cases(which, M):
                  lambda: M.kinetic_control(num_supports=50),
                  dict(EXAMPLES, linear_solver=ls))
                 for ls in ("auto", "dense", "ldl_cpp")]
+    if which == "escape34":
+        build = {"quad": lambda n: M.quad(num_supports=n),
+                 "opf": lambda n: M.opf(num_supports=n),
+                 "pandemic": lambda p: M.pandemic(num_supports=p[0],
+                                                  num_scenarios=p[1])}
+        return [(escape34_name(name, size),
+                 lambda f=build[name], a=size: f(a), RUN_CASES)
+                for name, size in ESCAPE34]
     if which == "sweep":
         return [(f"pandemic-{nt}x{nxi}",
                  lambda nt=nt, nxi=nxi: M.pandemic(num_supports=nt,
@@ -119,8 +146,9 @@ def _noisy_state(path, eps, seed):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--set", choices=("examples", "kinetics", "pandemic",
-                                      "sweep"), default="examples")
+    ap.add_argument("--set", default="examples",
+                    choices=("examples", "kinetics", "pandemic", "sweep",
+                             "escape34"))
     ap.add_argument("--package", choices=("jax", "port"), default="jax")
     ap.add_argument("--case", default=None)
     ap.add_argument("--x0-noise", type=float, default=0.0)
@@ -172,7 +200,8 @@ def main(argv=None):
             iter=int(res.iter),
             objective=float(m.objective_value()),
             primal_feas=float(res.primal_feas),
-            dual_feas=float(res.dual_feas), s=time.time() - t0,
+            dual_feas=float(res.dual_feas), nvar=int(b.model.nvar),
+            ncon=int(b.model.ncon), s=time.time() - t0,
             kkt=shape)), flush=True)
     return 0
 
