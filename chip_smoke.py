@@ -110,7 +110,12 @@ Phases (any failure raises and the script exits non-zero):
     ``families`` record of the kernels line).  With a border, every border
     factor the card computes is held against the same S factored in f64 on
     the host, and the bordered solve's backward error ||K x - r|| / ||r||
-    (through ``matvec``) of the last K is printed;
+    (through ``matvec``) of the last K is printed.  The two longest,
+    pandemic (51,4) and (100,8), run in a process of their own, started
+    before phase 13 and joined here (on their host-bound steps the card is
+    busy a few percent of the time; the times printed by phases 13-17
+    include that sharing), and every case's K1 record is taken after the
+    join;
 18. the reference's ESCAPE34 sweep points (its ``run_cases`` harness;
     ``infiniteexamodels_jl_torch.tools.run_cases`` runs the others):
     quad-4000 and quad-16000 through the same backend -- ``BlockTridiagKKT``
@@ -122,11 +127,21 @@ Phases (any failure raises and the script exits non-zero):
     second and peak device memory above a baseline; K1 on the blocks of
     quad-16000's last band factorization (backward errors within 10x of
     the plain version's; kernel, plain, library and bound, the
-    ``escape34`` record of the kernels line); opf-4000 and opf-8000 as in
-    phase 7; pandemic (100,128) cut at 50 iterations as (100,32) in phase
-    17 (band 7,040 x 16 with a border of 110, 14 K1 launches a
-    factorization, every border factor held against the host's, the
-    iterate finite).
+    ``escape34`` record of the kernels line); opf-2000 (capped at 150
+    iterations), opf-4000 and opf-8000 as in phase 7; pandemic (100,128)
+    cut at 50 iterations as (100,32) in phase 17 (band 7,040 x 16 with a
+    border of 110, 14 K1 launches a factorization, every border factor
+    held against the host's, the iterate finite).
+
+From phase 4 on, every f64 K1 call of the solves on this card (phase
+16's spawned ranks excepted) is also put through the plain version's
+pivot test (LAPACK's, ``cholesky_ex``): the f64 census.  Per phase it
+prints the f64 factorizations, K1's calls and blocks, the blocks each
+version rejects, by both and alone, and the blocks K1 factors with a
+least pivot in (sqrt(n) u, 2 n u] D_jj; each solve's line carries its own
+(``blocks_rejected_f64``), and the kernels line every phase's.  The solve
+goes on with K1's result and K1's launch count does not move; times and
+peak memory include the census's ``cholesky_ex``.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  The script exits non-zero and prints no
@@ -379,25 +394,131 @@ def k1_main_path_record(blocks, chol_linv, chol_linv_reference, launches,
 
 
 def rejections():
-    """A tally of the blocks K1 and its plain version reject (not SPD by
-    their pivot tests) over the f32 factorizations of a solve."""
-    return {"factorizations": 0, "blocks": 0, "k1": 0, "plain": 0,
-            "k1_only": 0, "plain_only": 0}
+    """A tally of K1's calls on one dtype's blocks: the calls, their blocks,
+    and the blocks K1 and its plain version reject (not SPD by their pivot
+    tests), by both and by each alone.  In f64 also the KKT factorizations,
+    the blocks K1 factors with a least pivot p in (sqrt(n) u, 2 n u] D_jj
+    (``flip_band``: passed by a test at sqrt(n) u, failed by one at 2 n u,
+    twice a pivot's worst-case rounding error), and over the blocks only
+    the plain version rejects, the least and the greatest of K1's pivot
+    p_j / (u D_jj) at the pivot where LAPACK stopped
+    (``plain_only_k1_pivot_u``).  Counts are kept on the card until
+    ``counts()`` reads them."""
+    return {"calls": 0, "blocks": 0, "k1": 0, "plain": 0, "k1_only": 0,
+            "plain_only": 0}
 
 
-def tally_rejections(tally, D, L, chol_linv_reference):
-    """Adds one f32 factorization's blocks to ``tally``: ``L`` is K1's
-    factor of ``D``; the plain version factors the same blocks (a
-    comparison: K1's launch count does not move)."""
-    Lr, _, _ = chol_linv_reference(D)
+def counts(tally):
+    """``tally`` read back: counts as ints, pivot ranges as [least,
+    greatest] (None where no block was seen)."""
+    out = {}
+    for k, v in tally.items():
+        if torch.is_tensor(v) and v.is_floating_point():
+            lo, hi = (float(x) for x in v)
+            out[k] = [lo, hi] if math.isfinite(lo) else None
+        else:
+            out[k] = int(v)
+    return out
+
+
+def rejected_blocks(D, L):
+    """One K1 call's tally (``rejections()``'s keys): ``L`` is K1's factor
+    of the contiguous ``D``; the plain version's test (LAPACK's,
+    ``cholesky_ex``: a computed pivot <= 0) runs on the same blocks.  A
+    comparison: the solve goes on with K1's result, K1's launch count does
+    not move, and nothing waits for the card."""
     bad = ~torch.isfinite(L).flatten(1).all(1)
-    bad_r = ~torch.isfinite(Lr).flatten(1).all(1)
-    tally["factorizations"] += 1
-    tally["blocks"] += D.shape[0]
-    tally["k1"] += int(bad.sum())
-    tally["plain"] += int(bad_r.sum())
-    tally["k1_only"] += int((bad & ~bad_r).sum())
-    tally["plain_only"] += int((bad_r & ~bad).sum())
+    info = torch.linalg.cholesky_ex(D).info
+    bad_r = info != 0
+    flags = [bad, bad_r, bad & ~bad_r, bad_r & ~bad]
+    out = {"calls": 1, "blocks": D.shape[0]}
+    if D.dtype == torch.float64:
+        n, u = D.shape[-1], torch.finfo(D.dtype).eps / 2
+        piv = (torch.diagonal(L, dim1=-2, dim2=-1) ** 2
+               / torch.diagonal(D, dim1=-2, dim2=-1)) / u
+        least = piv.amin(-1)
+        flags.append((least > math.sqrt(n)) & (least <= 2 * n))
+        # info: the order of the leading minor LAPACK found not SPD
+        at = piv.gather(-1, (info.long() - 1).clamp(min=0)[:, None])[:, 0]
+        only = flags[3]
+        out["plain_only_k1_pivot_u"] = torch.stack([
+            torch.where(only, at, math.inf).amin(),
+            torch.where(only, at, -math.inf).amax()])
+    keys = ("k1", "plain", "k1_only", "plain_only", "flip_band")
+    out.update(zip(keys, torch.stack(flags).sum(1)))
+    return out
+
+
+def add_rejections(tally, rec):
+    """Adds one call's ``rejected_blocks`` to ``tally``."""
+    for k, v in rec.items():
+        if k == "plain_only_k1_pivot_u":
+            prev = tally.get(k)
+            tally[k] = v if prev is None else torch.stack(
+                [torch.minimum(prev[0], v[0]), torch.maximum(prev[1], v[1])])
+        else:
+            tally[k] = tally.get(k, 0) + v
+
+
+class Census:
+    """K1's f64 census: around ``block_tridiag._chol_linv`` and
+    ``BlockTridiagKKT.factor`` for the whole run (phase 16's spawned ranks
+    run the same kernel and are left out), every f64 call's blocks tallied
+    (``rejected_blocks``) into the current phase's tally and, while a
+    solve runs through ``solve_recorded``, into that solve's
+    (``last``)."""
+
+    def __init__(self):
+        self.phase, self.phases, self.extra = None, {}, {}
+        self.reports = {}
+        self.solve = self.last = None
+
+    def begin(self, phase):
+        self.phase, self.t0 = phase, time.time()
+
+    def install(self):
+        from infiniteexamodels_jl_torch.solvers import block_tridiag
+        self.k1 = block_tridiag._chol_linv
+        factor = block_tridiag.BlockTridiagKKT.factor
+
+        def counted(kkt, K):
+            if (kkt.factor_dtype or K[0].dtype) == torch.float64:
+                for t in self.tallies():
+                    t["factorizations"] = t.get("factorizations", 0) + 1
+            return factor(kkt, K)
+        block_tridiag._chol_linv = self
+        block_tridiag.BlockTridiagKKT.factor = counted
+
+    def tallies(self):
+        t = [self.phases.setdefault(self.phase, rejections())]
+        return t + [self.solve] if self.solve is not None else t
+
+    def __call__(self, D):
+        out = self.k1(D)
+        if D.dtype == torch.float64:
+            rec = rejected_blocks(D.contiguous(), out[0])
+            for t in self.tallies():
+                add_rejections(t, rec)
+        return out
+
+    def report(self):
+        """Prints the current phase's tally (with ``extra``'s, read back in
+        another process) and seconds; keeps the tally, read back, in
+        ``reports``."""
+        rec = counts(self.phases.get(self.phase, rejections()))
+        for k, v in self.extra.get(self.phase, {}).items():
+            if k == "plain_only_k1_pivot_u":
+                both = [r for r in (rec.get(k), v) if r is not None]
+                rec[k] = [min(r[0] for r in both),
+                          max(r[1] for r in both)] if both else None
+            else:
+                rec[k] = rec.get(k, 0) + v
+        print(json.dumps({"census_f64": self.phase, **rec,
+                          "phase_s": time.time() - self.t0}))
+        self.reports[self.phase] = rec
+
+
+CENSUS = Census()
 
 
 def solve_recorded(backend, m, chol_linv, seen=None, keep=1, dtype=None,
@@ -409,12 +530,11 @@ def solve_recorded(backend, m, chol_linv, seen=None, keep=1, dtype=None,
     ``seen``, the blocks of the last ``keep`` calls (of ``dtype``, when
     given) are kept; with ``last_K`` (a list), the last assembled K that
     was factored; with ``tally`` (``rejections()``), the blocks K1 and its
-    plain version reject in every f32 call.  Returns (result, seconds,
+    plain version reject in every f32 call (the f64 calls' in
+    ``CENSUS.last``).  Returns (result, seconds,
     launches, factorizations, {"k1": launches by dtype, "factor":
     factorizations by dtype})."""
     from infiniteexamodels_jl_torch.solvers import block_tridiag
-    from infiniteexamodels_jl_torch.solvers.chol_linv import (
-        chol_linv_reference)
     k1 = block_tridiag._chol_linv
     factor = block_tridiag.BlockTridiagKKT.factor
     factorizations = [0]
@@ -432,8 +552,7 @@ def solve_recorded(backend, m, chol_linv, seen=None, keep=1, dtype=None,
             del seen[:-keep]
         out = k1(D)
         if tally is not None and D.dtype == torch.float32:
-            tally_rejections(tally, D.contiguous(), out[0],
-                             chol_linv_reference)
+            add_rejections(tally, rejected_blocks(D.contiguous(), out[0]))
         return out
 
     def counted(self, K):
@@ -445,6 +564,7 @@ def solve_recorded(backend, m, chol_linv, seen=None, keep=1, dtype=None,
 
     block_tridiag._chol_linv = recording
     block_tridiag.BlockTridiagKKT.factor = counted
+    CENSUS.solve = rejections()
     try:
         chol_linv.launches = 0
         t0 = time.time()
@@ -454,6 +574,7 @@ def solve_recorded(backend, m, chol_linv, seen=None, keep=1, dtype=None,
     finally:
         block_tridiag._chol_linv = k1
         block_tridiag.BlockTridiagKKT.factor = factor
+        CENSUS.last, CENSUS.solve = counts(CENSUS.solve), None
     # every call launched the kernel (the tensors are on the card)
     assert sum(by_dtype["k1"].values()) == chol_linv.launches, (
         by_dtype, chol_linv.launches)
@@ -477,7 +598,7 @@ def segsum_record(model, kkt):
 
 
 def structured_solve(tag, m, record, shape, per, chol_linv, seen=None,
-                     keep=1):
+                     keep=1, max_iter=None):
     """``m`` through the band or scenario KKT on the card: a first solve
     (K1's launches counted around it; peak device memory read over the
     build and it, above what was allocated before, after a
@@ -486,7 +607,8 @@ def structured_solve(tag, m, record, shape, per, chol_linv, seen=None,
     type and ``shape`` = (mode, nb, bs, mB) (a dense fallback would factor
     an (n, n) matrix), ``per`` K1 launches in every factorization, and the
     status and objective (within 1e-6 relative) of the JAX CPU ``record``
-    = (status, iterations, objective); prints one line and returns it."""
+    = (status, iterations, objective); prints one line and returns it.
+    ``max_iter`` caps both solves (the solver's default when None)."""
     from infiniteexamodels_jl_torch.backend import ExaTranscriptionBackend
     from infiniteexamodels_jl_torch.solvers import IpmSolver
     from infiniteexamodels_jl_torch.solvers.block_tridiag import (
@@ -497,15 +619,17 @@ def structured_solve(tag, m, record, shape, per, chol_linv, seen=None,
     baseline = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
+    opts = {} if max_iter is None else {"max_iter": max_iter}
     backend = ExaTranscriptionBackend(IpmSolver, device="cuda",
                                       linear_solver="auto", tol=1e-6,
-                                      print_level=0)
+                                      print_level=0, **opts)
     m.set_transformation_backend(backend)
     backend.build(m)
     torch.cuda.synchronize()
     build_s = time.time() - t0
     # the first solve builds the solver and its KKT (structure analysis)
     res, first_s, launches, facts, _ = solve_recorded(backend, m, chol_linv)
+    census = CENSUS.last
     peak = torch.cuda.max_memory_allocated() - baseline
     kkt = backend.solver.kkt
     assert type(kkt) is BlockTridiagKKT, (tag, type(kkt))
@@ -530,6 +654,7 @@ def structured_solve(tag, m, record, shape, per, chol_linv, seen=None,
             "warm_resolve_s": warm_s, "iters_per_s_warm": res.iter / warm_s,
             "k1_launches": launches, "factorizations": facts,
             "k1_launches_per_factorization": launches / facts,
+            "blocks_rejected_f64": census,
             "memory_baseline_bytes": baseline,
             "peak_memory_above_baseline_bytes": peak,
             **segsum_record(backend.model, kkt)}
@@ -551,8 +676,7 @@ def k1_scenario_record(D, launches, per_factorization, chol_linv,
     D32 = D.float().contiguous()
     times32 = k1_times(D32, chol_linv, chol_linv_reference, 20)
     bound32, _ = k1_bound_ms(D32.shape[0], D32.shape[-1], D32.dtype)
-    rejected = rejections()
-    tally_rejections(rejected, D32, chol_linv(D32)[0], chol_linv_reference)
+    rejected = rejected_blocks(D32, chol_linv(D32)[0])
     return {"shape": list(D.shape), "dtype": str(D.dtype),
             "launches_per_factorization": per_factorization,
             "launches": launches,
@@ -566,7 +690,8 @@ def k1_scenario_record(D, launches, per_factorization, chol_linv,
             "f32": {"ms": times32["kernel_device_ms"],
                     "plain_ms": times32["plain_device_ms"],
                     "library_ms": times32["library_device_ms"],
-                    "bound_ms": bound32, "blocks_rejected": rejected}}
+                    "bound_ms": bound32,
+                    "blocks_rejected": counts(rejected)}}
 
 
 def determinism(tag, make_model):
@@ -609,6 +734,7 @@ def scenario_phases(chol_linv, chol_linv_reference):
     # 7. scenario mode: opf-1000 and opf-16000 (the reference sweep's
     # smallest and largest sizes); block_diag factors every block in one
     # K1 launch
+    CENSUS.begin("7")
     for S in (1000, 16000):
         blocks = [] if S == 16000 else None
         objective, iters = OPF_RECORDS[S]
@@ -623,12 +749,17 @@ def scenario_phases(chol_linv, chol_linv_reference):
     record = k1_scenario_record(D, line["k1_launches"], 1, chol_linv,
                                 chol_linv_reference)
     del blocks, D
+    CENSUS.report()
     # 9. farmer-1000, the reference's default size
+    CENSUS.begin("9")
     structured_solve("farmer-1000", farmer(num_scenarios=1000),
                      ("first_order", FARMER1000[1], FARMER1000[0]),
                      ("block_diag", 1000, 8, 3), 1, chol_linv)
+    CENSUS.report()
     # 10. determinism: two opf-1000 solves
+    CENSUS.begin("10")
     determinism("opf-1000", lambda: opf(num_supports=1000))
+    CENSUS.report()
     return record
 
 
@@ -691,6 +822,7 @@ def lowprec_quad_phase(chol_linv):
         res, first_s, launches, facts, by_dtype = solve_recorded(
             backend, m, chol_linv, seen, keep=len(QUAD1000_LEVELS),
             dtype=torch.float32, tally=tally)
+        census = CENSUS.last
         solver = backend.solver
         assert type(solver.kkt) is BlockTridiagKKT, type(solver.kkt)
         assert solver.kkt32 is not None and solver.kkt.mode == "band"
@@ -710,7 +842,9 @@ def lowprec_quad_phase(chol_linv):
             "objective": res.objective, "objective_rel_err": rel,
             "f32_until": handover, "f32_steps": n32, "f64_steps": n64,
             "k1_launches": launches, "by_dtype": by_dtype,
-            "factorizations": facts, "blocks_rejected_f32": tally,
+            "factorizations": facts,
+            "blocks_rejected_f32": counts(tally),
+            "blocks_rejected_f64": census,
             "first_solve_s": first_s,
             "warm_resolve_s": warm_s, "warm_ms_per_step": ms,
             "jax_cpu_record": dict(zip(
@@ -771,7 +905,7 @@ def k1_f32_record(blocks, launches, factorizations, rejected, chol_linv,
             "plan_344": launch_plan(64, torch.float32, 344)._asdict(),
             "launches": launches,
             "launches_per_factorization": launches / factorizations,
-            "blocks_rejected": rejected,
+            "blocks_rejected": counts(rejected),
             "max_abs_err": worst["max_abs_err"],
             "max_rel_err": worst["max_rel_err"],
             "ms": tot["kernel_device_ms"], "plain_ms": tot["plain_device_ms"],
@@ -824,7 +958,9 @@ def opf_mixed_phase(chol_linv, chol_linv_reference, launch_plan):
             launches / facts,
             f"plan_{S + 1}": launch_plan(24, torch.float32,
                                          S + 1)._asdict(),
-            "k1_f32_last_blocks": back, "blocks_rejected_f32": tally,
+            "k1_f32_last_blocks": back,
+            "blocks_rejected_f32": counts(tally),
+            "blocks_rejected_f64": CENSUS.last,
             "first_solve_s": first_s, "ms_per_step": ms,
             "jax_cpu_record": {"status": status, "iterations": iters,
                                "objective": objective, "f32_until": last32,
@@ -1282,7 +1418,9 @@ FAMILY_CASES = {
                          dict(max_iter=CUT_AT["pandemic-100x128"]),
                          ("band", 7040, 16, 110), 14, False),
 }
-PHASE17 = tuple(FAMILY_CASES)[:-1]
+# phase 17's longest solves, in a process of their own beside phases 13-17
+BACKGROUND = ("pandemic-51x4", "pandemic-100x8")
+PHASE17 = tuple(c for c in tuple(FAMILY_CASES)[:-1] if c not in BACKGROUND)
 
 
 def family_checks(tag, m, res):
@@ -1391,84 +1529,155 @@ def bordered_residual(kkt, K, seed=0):
     return bool(ok), float(res / torch.linalg.vector_norm(r))
 
 
-def family_phase(chol_linv, chol_linv_reference, cases=PHASE17):
-    """Phase 17: the ``cases`` of FAMILY_CASES on the card; returns K1's
-    records on their paths."""
+def family_solve(tag, chol_linv):
+    """One case of FAMILY_CASES on the card, its checks asserted; returns
+    its line and the blocks of the last factorization of its (first)
+    solve."""
     from infiniteexamodels_jl_torch import models
     from infiniteexamodels_jl_torch.backend import ExaTranscriptionBackend
     from infiniteexamodels_jl_torch.solvers import IpmSolver
     from infiniteexamodels_jl_torch.solvers.block_tridiag import (
         BlockTridiagKKT)
-    t_phase = time.time()
-    records = {}
-    for tag in cases:
-        name, kw, opts, shape, per, warm = FAMILY_CASES[tag]
-        t0 = time.time()
-        m = getattr(models, name)(**kw)
-        backend = ExaTranscriptionBackend(IpmSolver, device="cuda",
-                                          linear_solver="auto", tol=1e-6,
-                                          print_level=0, **opts)
-        m.set_transformation_backend(backend)
-        backend.build(m)
-        build_s = time.time() - t0
-        seen, last_K = [], []
-        border = BorderCheck() if shape[3] else None
-        if border is not None:
-            with border:
-                res, first_s, launches, facts, _ = solve_recorded(
-                    backend, m, chol_linv, seen, keep=per, last_K=last_K)
-        else:
+    name, kw, opts, shape, per, warm = FAMILY_CASES[tag]
+    t0 = time.time()
+    m = getattr(models, name)(**kw)
+    backend = ExaTranscriptionBackend(IpmSolver, device="cuda",
+                                      linear_solver="auto", tol=1e-6,
+                                      print_level=0, **opts)
+    m.set_transformation_backend(backend)
+    backend.build(m)
+    build_s = time.time() - t0
+    seen, last_K = [], []
+    border = BorderCheck() if shape[3] else None
+    if border is not None:
+        with border:
             res, first_s, launches, facts, _ = solve_recorded(
                 backend, m, chol_linv, seen, keep=per, last_K=last_K)
-        kkt = backend.solver.kkt
-        assert type(kkt) is BlockTridiagKKT, (tag, type(kkt))
-        assert (kkt.mode, kkt.nb, kkt.bs, kkt.mB) == shape, (
-            tag, kkt.mode, kkt.nb, kkt.bs, kkt.mB)
-        assert kkt.k1_launches_per_factorization() == per, tag
-        # every factorization of the solve launched K1 ``per`` times
-        assert facts > 0 and launches == per * facts, (tag, launches, facts)
-        unmet = family_checks(tag, m, res)
-        record = FAMILY_RECORDS.get(tag)
-        warm_s = None
-        if warm:
-            res2, warm_s, _, _, _ = solve_recorded(backend, m, chol_linv)
-            assert (res2.status, res2.iter) == (res.status, res.iter), (
-                tag, res2.status, res2.iter)
-        line = {"family": tag, "nvar": backend.model.nvar,
-                "ncon": backend.model.ncon, "mode": kkt.mode, "nb": kkt.nb,
-                "bs": kkt.bs, "mB": kkt.mB, "status": res.status,
-                "iterations": res.iter, "objective": res.objective,
-                "primal_feas": res.primal_feas, "dual_feas": res.dual_feas,
-                "jax_cpu_record": record and dict(zip(
-                    ("status", "iterations", "objective"), record)),
-                "objective_rel_err": record and abs(
-                    res.objective - record[2]) / abs(record[2]),
-                "build_s": build_s, "first_solve_s": first_s,
-                "warm_resolve_s": warm_s,
-                "ms_per_iteration_first": 1e3 * first_s / max(res.iter, 1),
-                "k1_launches": launches, "factorizations": facts,
-                "k1_launches_per_factorization": launches / facts,
-                "reference_bounds_printed_not_asserted": unmet}
-        if border is not None:
-            ok, rel = bordered_residual(kkt, last_K[0])
-            assert ok and math.isfinite(rel), (tag, ok, rel)
-            line.update(border_factorizations=border.calls,
-                        border_not_spd=border.failed,
-                        border_backward_error=border.worst,
-                        bordered_solve_backward_error=rel)
-        print(json.dumps(line))
-        # K1 against its plain version on the blocks of the last
-        # factorization of the (first) solve
-        assert len(seen) == per, (tag, len(seen))
-        rec = k1_main_path_record(seen, chol_linv, chol_linv_reference,
-                                  launches, tag=tag)
-        records[tag] = {"shapes": [list(D.shape) for D in seen],
-                        "launches": launches,
-                        "launches_per_factorization": per,
-                        **{k: rec[k] for k in ("max_abs_err", "max_rel_err",
-                                               "ms", "plain_ms", "bound_ms",
-                                               "bound_by", "library_ms")}}
-        del m, backend, kkt, seen, last_K
+    else:
+        res, first_s, launches, facts, _ = solve_recorded(
+            backend, m, chol_linv, seen, keep=per, last_K=last_K)
+    census = CENSUS.last
+    kkt = backend.solver.kkt
+    assert type(kkt) is BlockTridiagKKT, (tag, type(kkt))
+    assert (kkt.mode, kkt.nb, kkt.bs, kkt.mB) == shape, (
+        tag, kkt.mode, kkt.nb, kkt.bs, kkt.mB)
+    assert kkt.k1_launches_per_factorization() == per, tag
+    # every factorization of the solve launched K1 ``per`` times
+    assert facts > 0 and launches == per * facts, (tag, launches, facts)
+    unmet = family_checks(tag, m, res)
+    record = FAMILY_RECORDS.get(tag)
+    warm_s = None
+    if warm:
+        res2, warm_s, _, _, _ = solve_recorded(backend, m, chol_linv)
+        assert (res2.status, res2.iter) == (res.status, res.iter), (
+            tag, res2.status, res2.iter)
+    line = {"family": tag, "nvar": backend.model.nvar,
+            "ncon": backend.model.ncon, "mode": kkt.mode, "nb": kkt.nb,
+            "bs": kkt.bs, "mB": kkt.mB, "status": res.status,
+            "iterations": res.iter, "objective": res.objective,
+            "primal_feas": res.primal_feas, "dual_feas": res.dual_feas,
+            "jax_cpu_record": record and dict(zip(
+                ("status", "iterations", "objective"), record)),
+            "objective_rel_err": record and abs(
+                res.objective - record[2]) / abs(record[2]),
+            "build_s": build_s, "first_solve_s": first_s,
+            "warm_resolve_s": warm_s,
+            "ms_per_iteration_first": 1e3 * first_s / max(res.iter, 1),
+            "k1_launches": launches, "factorizations": facts,
+            "k1_launches_per_factorization": launches / facts,
+            "blocks_rejected_f64": census,
+            "reference_bounds_printed_not_asserted": unmet}
+    if border is not None:
+        ok, rel = bordered_residual(kkt, last_K[0])
+        assert ok and math.isfinite(rel), (tag, ok, rel)
+        line.update(border_factorizations=border.calls,
+                    border_not_spd=border.failed,
+                    border_backward_error=border.worst,
+                    bordered_solve_backward_error=rel)
+    assert len(seen) == per, (tag, len(seen))
+    return line, seen
+
+
+def family_record(line, seen, chol_linv, chol_linv_reference):
+    """Prints a case's line; K1 against its plain version on the blocks of
+    the case's last factorization (its record in the kernels line)."""
+    print(json.dumps(line))
+    tag, launches = line["family"], line["k1_launches"]
+    rec = k1_main_path_record(seen, chol_linv, chol_linv_reference,
+                              launches, tag=tag)
+    return {"shapes": [list(D.shape) for D in seen], "launches": launches,
+            "launches_per_factorization": len(seen),
+            **{k: rec[k] for k in ("max_abs_err", "max_rel_err", "ms",
+                                   "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")}}
+
+
+def family_worker(rank, cases, tmp):
+    """The process of phase 17's ``cases`` (spawned): each solved and
+    checked as in the main process, with its own f64 census; the lines,
+    the blocks and the census saved for the main process."""
+    sys.path.insert(0, str(ROOT))
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from infiniteexamodels_jl_torch.solvers.chol_linv import chol_linv
+    CENSUS.install()
+    CENSUS.begin("17")
+    out = {}
+    for tag in cases:
+        line, seen = family_solve(tag, chol_linv)
+        out[tag] = (line, [D.cpu() for D in seen])
+    torch.save({"cases": out,
+                "census": counts(CENSUS.phases.get("17", rejections()))},
+               f"{tmp}/families.pt")
+
+
+class Background:
+    """Cases of phase 17 in a process of their own (``family_worker``),
+    started before the phases they run beside: on these host-bound solves
+    the card is busy a few percent of the time."""
+
+    def __init__(self, cases):
+        import torch.multiprocessing as mp
+        self.tmp = tempfile.TemporaryDirectory()
+        self.t0 = time.time()
+        # a daemon: it ends with this process, whatever phase fails
+        self.ctx = mp.spawn(family_worker, args=(cases, self.tmp.name),
+                            nprocs=1, join=False, daemon=True)
+
+    def join(self, limit_s=1000):
+        """Waits for the process (a failing case raises here, a hung one
+        is killed ``limit_s`` after the start) and returns its results."""
+        try:
+            while not self.ctx.join(timeout=5):
+                if time.time() > self.t0 + limit_s:
+                    raise RuntimeError(f"phase 17: passed {limit_s} s")
+        finally:
+            for p in self.ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        out = torch.load(f"{self.tmp.name}/families.pt")
+        self.tmp.cleanup()
+        print(json.dumps({"background_s": time.time() - self.t0}))
+        return out
+
+
+def family_phase(chol_linv, chol_linv_reference, cases=PHASE17,
+                 background=None):
+    """Phase 17: the ``cases`` of FAMILY_CASES on the card, then those of
+    ``background`` (a ``Background``), whose census joins the phase's;
+    returns K1's records on their paths."""
+    t_phase = time.time()
+    solved = [family_solve(tag, chol_linv) for tag in cases]
+    # K1's times are taken once the card is this process's alone
+    if background is not None:
+        out = background.join()
+        solved += [(line, [D.cuda() for D in seen])
+                   for line, seen in out["cases"].values()]
+        CENSUS.extra[CENSUS.phase] = out["census"]
+    records = {line["family"]: family_record(line, seen, chol_linv,
+                                             chol_linv_reference)
+               for line, seen in solved}
     print(json.dumps({"family_phase_s": time.time() - t_phase}))
     return records
 
@@ -1498,29 +1707,21 @@ ESCAPE34_RECORDS = {
 }
 # quad supports -> band blocks of 64 (the band KKT, no border)
 ESCAPE34_QUAD = {4000: 2750, 16000: 11000}
-# opf-2000 is left out: on the card its f64 endgame crawls (alpha ~2e-4 a
-# step from iteration 18 on) through blocks K1 factors within round-off
-# of singular, where the plain version rejects one and escapes (ROADMAP
-# 3.7; tools/k1_f32_crawl.py --size 2000 --factor-dtype float64)
-ESCAPE34_OPF = (4000, 8000)
-
-
-def bcr_levels(nb):
-    """The blocks of each K1 launch of one band factorization of ``nb``
-    blocks: the odd blocks of every BCR level, then the root."""
-    out = []
-    while nb > 1:
-        out.append(nb // 2)
-        nb = (nb + 1) // 2
-    return tuple(out) + (1,)
+ESCAPE34_OPF = (2000, 4000, 8000)
+# opf-2000's endgame runs over blocks indefinite at round-off level, which
+# K1's f64 pivot test rejects (ROADMAP 3.7): a cap far above its count
+# (JAX CPU 24) turns a relapse into the crawl it replaced into a failure
+# within minutes, where the default max_iter would take most of an hour
+ESCAPE34_MAX_ITER = {2000: 150}
 
 
 def escape34_phase(chol_linv, chol_linv_reference):
     """Phase 18: quad-4000 and quad-16000 through the band KKT, K1 on
-    quad-16000's recorded blocks, opf-4000 and opf-8000 through the
-    scenario KKT, and pandemic (100,128) cut at 50 iterations; returns K1's
+    quad-16000's recorded blocks, opf-2000, opf-4000 and opf-8000 through
+    the scenario KKT, and pandemic (100,128) cut at 50 iterations; returns K1's
     records on quad-16000's and (100,128)'s paths."""
     from infiniteexamodels_jl_torch.models import opf, quad
+    from infiniteexamodels_jl_torch.tools.k1_sweep import bcr_levels
     t_phase = time.time()
     record = {}
     for n, nb in ESCAPE34_QUAD.items():
@@ -1551,7 +1752,8 @@ def escape34_phase(chol_linv, chol_linv_reference):
         status, iters, objective, nvar, ncon = ESCAPE34_RECORDS[f"opf-{S}"]
         line = structured_solve(f"opf-{S}", opf(num_supports=S),
                                 (status, iters, objective),
-                                ("block_diag", S + 1, 24, 6), 1, chol_linv)
+                                ("block_diag", S + 1, 24, 6), 1, chol_linv,
+                                max_iter=ESCAPE34_MAX_ITER.get(S))
         assert (line["nvar"], line["ncon"]) == (nvar, ncon), line
     record.update(family_phase(chol_linv, chol_linv_reference,
                                cases=("pandemic-100x128",)))
@@ -1595,9 +1797,14 @@ def main():
     worst = k1_phase(chol_linv, chol_linv_reference, launch_plan)
     print(json.dumps({"k1_worst_rel_err": worst}))
 
+    # K1's f64 census from here on: every f64 call of the solves on this
+    # card also through the plain version's pivot test, tallied by phase
+    CENSUS.install()
+
     # 4. the main path: quad-1000 on the card, one K1 launch per BCR
     # level; the warm re-solve records the blocks of every K1 call, the
     # last 11 being its last band factorization (a late iteration)
+    CENSUS.begin("4")
     seen = []
     line = structured_solve("quad-1000", quad(num_supports=1000),
                             ("first_order", 10, QUAD1000_OBJECTIVE),
@@ -1605,9 +1812,12 @@ def main():
                             chol_linv, seen, keep=len(QUAD1000_LEVELS))
     assert tuple(D.shape[0] for D in seen) == QUAD1000_LEVELS, [
         D.shape for D in seen]
+    CENSUS.report()
 
     # 5. determinism: two quad-200 solves, every iterate bit-identical
+    CENSUS.begin("5")
     determinism("quad-200", lambda: quad(num_supports=200))
+    CENSUS.report()
 
     # 6. K1 on the recorded quad-1000 blocks; the kernels line
     record = k1_main_path_record(seen, chol_linv, chol_linv_reference,
@@ -1618,26 +1828,43 @@ def main():
     record["opf16000"] = scenario_phases(chol_linv, chol_linv_reference)
 
     # 11.-13. the low-precision step sets
+    CENSUS.begin("11")
     blocks, (launches32, facts32, rejected) = lowprec_quad_phase(chol_linv)
+    CENSUS.report()
     record["f32"] = k1_f32_record(blocks, launches32, facts32, rejected,
                                   chol_linv, chol_linv_reference,
                                   launch_plan)
     del blocks
+    # phase 17's two longest solves start here, beside phases 13-17
+    background = Background(BACKGROUND)
+    # 13. opf "mixed"
+    CENSUS.begin("13")
     opf_mixed_phase(chol_linv, chol_linv_reference, launch_plan)
+    CENSUS.report()
 
     # 14. the host LDL; 15. checkpoint/resume and the profiler trace
+    CENSUS.begin("14")
     ldl_phase()
+    CENSUS.report()
+    CENSUS.begin("15")
     checkpoint_trace_phase()
+    CENSUS.report()
 
     # 16. the multi-device backends: 4 ranks on the card
     record["sharded"] = mesh_phase(chol_linv, chol_linv_reference,
                                    launch_plan)
 
     # 17. the families no earlier phase runs
-    record["families"] = family_phase(chol_linv, chol_linv_reference)
+    CENSUS.begin("17")
+    record["families"] = family_phase(chol_linv, chol_linv_reference,
+                                      background=background)
+    CENSUS.report()
 
     # 18. the reference's ESCAPE34 sweep points
+    CENSUS.begin("18")
     record["escape34"] = escape34_phase(chol_linv, chol_linv_reference)
+    CENSUS.report()
+    record["blocks_rejected_f64"] = CENSUS.reports
 
     print(json.dumps({"elapsed_s": time.time() - t_start}))
     print(card_line())        # again here: the head of a long log is cut

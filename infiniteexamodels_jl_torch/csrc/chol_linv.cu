@@ -8,20 +8,32 @@
 // contract of the reference's `_chol_linv`.
 //
 // The pivot test.  The computed pivot p_j = D_jj - sum_{k<j} L_jk^2 is a
-// sum of at most n rounded terms, each at most D_jj in size, so it carries
-// a rounding error of about sqrt(n) u D_jj (u = eps/2, the dtype's unit
-// roundoff; the probabilistic error model of Higham and Mary, SIAM J. Sci.
-// Comput. 41(5), 2019).  A pivot at or below that is not resolved from
-// zero: LAPACK's potrf, which fails a block only when its own computed
-// pivot is <= 0, then fails or factors the block by the sign of its
-// round-off, and a factor it does pass is dominated by that round-off.
-// So a block fails here when some pivot is <= 0, NaN or inf (checked as
-// the diagonal tile is factored) or has
-//     p_j = L_jj^2 <= sqrt(n) * u * D_jj      (D_jj: the block's own entry)
+// sum of at most n rounded terms, each at most D_jj in size: it carries a
+// rounding error of at most about n u D_jj (u = eps/2, the dtype's unit
+// roundoff), and of about sqrt(n) u D_jj in a typical run (the
+// probabilistic error model of Higham and Mary, SIAM J. Sci. Comput.
+// 41(5), 2019).  LAPACK's potrf fails a block only when its own computed
+// pivot is <= 0, so on a block whose least pivot is round-off it fails or
+// factors by the sign of that round-off.  A block fails here when some
+// pivot is <= 0, NaN or inf (checked as the diagonal tile is factored) or
+// has
+//     p_j = L_jj^2 <= c(n) * u * D_jj      (D_jj: the block's own entry)
 // (checked once the block is factored, from L's diagonal, off the chain of
-// dependent pivots): in f64 that is a pivot below ~5.4e-16 D_jj at n = 24
-// (8.9e-16 at n = 64), in f32 below ~2.9e-7 D_jj at n = 24 (4.8e-7 at
-// n = 64).  The wrapper states the same test (solvers/chol_linv.py
+// dependent pivots), where c(n) differs by dtype:
+//   * f64: c = 2 n, twice the worst-case error.  Two backward-stable
+//     Choleskys' pivots differ by at most about that, so K1 fails every block
+//     that LAPACK, or any other such factorization, could fail, and a
+//     solve's f64 steps do not rest on the sign of one pivot's round-off
+//     (an interior-point endgame over blocks singular to working
+//     precision: K1 fails them and the solver regularizes, as LAPACK does
+//     when its round-off falls below zero).  A pivot below ~5.3e-15 D_jj
+//     at n = 24 (1.4e-14 at n = 64).
+//   * f32: c = sqrt(n), the typical error.  The worst case would be 64
+//     eps at n = 64, above the least pivots (6.5-13.5 eps D_jj) of the
+//     f32-preconditioned deep levels of block cyclic reduction, which f32
+//     factors and LAPACK passes; it would fail them all.  A pivot below
+//     ~2.9e-7 D_jj at n = 24 (4.8e-7 at n = 64).
+// The wrapper states the same test (solvers/chol_linv.py
 // `pivot_threshold`).
 //
 // Replaces the TPU Pallas kernels `_chol_inv_kernel` (solvers/pallas_chol.py
@@ -99,17 +111,21 @@ __device__ __forceinline__ float nan_of(float) {
   return __int_as_float(0x7fc00000);
 }
 
-// the unit roundoff u = eps / 2 of the pivot test
-__device__ __forceinline__ double unit_roundoff(double) { return 0x1p-53; }
-__device__ __forceinline__ float unit_roundoff(float) { return 0x1p-24f; }
+// c(n) u of the pivot test (u = eps / 2): 2 n u in f64, sqrt(n) u in f32
+__device__ __forceinline__ double pivot_constant(double, int n) {
+  return 2.0 * n * 0x1p-53;
+}
+__device__ __forceinline__ float pivot_constant(float, int n) {
+  return sqrtf(float(n)) * 0x1p-24f;
+}
 
-// The pivot test on a factored block: true when some L_jj^2 <= sqrt(n) u
+// The pivot test on a factored block: true when some L_jj^2 <= c(n) u
 // D_jj (or is NaN), the same in every thread of the calling CTA (a
 // barrier).  Ld holds L with leading dimension ld, Db the block's D.
 template <typename T, class M>
 __device__ bool pivot_test_fails(const T* Ld, int ld,
                                  const T* __restrict__ Db, int n) {
-  const T cn = sqrt(T(n)) * unit_roundoff(T(0));
+  const T cn = pivot_constant(T(0), n);
   int bad = 0;
   for (int j = threadIdx.x; j < n; j += blockDim.x) {
     const T l = M::ld(Ld + j * ld + j);

@@ -19,16 +19,24 @@ block factored and every entry of ``Linv`` is finite.
 
 "Not SPD" is decided at the pivots.  The plain version takes LAPACK's test
 (a computed pivot <= 0).  The kernel fails a block when a pivot is not
-safely positive: ``p_j <= pivot_threshold(n, dtype) * D_jj``, where the
-threshold ``sqrt(n) u`` (u the unit roundoff) is the rounding error a
-computed pivot carries (the note at the top of the CUDA source derives
-it).  A pivot below it is round-off of either sign, which LAPACK's test
-passes or fails by chance; so the two versions agree on every block whose
-pivots sit clear of that band, and a block that one factors and the other
-fails has the factoring side's least pivot within :func:`pivot_margin`
-thresholds (the worst-case rounding error of a pivot, ``n u D_jj``, from
-either side).  :func:`scaled_pivots` reads a factor's least pivot in
-thresholds.
+safely positive: ``p_j <= pivot_threshold(n, dtype) * D_jj``.  A computed
+pivot carries a rounding error of at most about ``n u D_jj`` (u the unit
+roundoff), typically ``sqrt(n) u D_jj`` (the note at the top of the CUDA
+source derives both); LAPACK's test passes or fails a pivot within that
+of zero by chance.  The threshold differs by dtype:
+
+* f64, ``2 n u``: twice the worst-case error, so K1 fails every block
+  whose pivot a backward-stable Cholesky could compute as <= 0, and no
+  block that the plain version fails is factored by K1.  A block that K1
+  fails and the plain version factors has the plain version's least
+  pivot within :func:`pivot_margin` thresholds.
+* f32, ``sqrt(n) u``: the typical error (the worst case would fail the
+  deep BCR levels of the f32 step sets, whose least pivots are a few
+  eps).  The two versions agree on every block whose pivots sit clear of
+  that band, and a block that one factors and the other fails has the
+  factoring side's least pivot within :func:`pivot_margin` thresholds.
+
+:func:`scaled_pivots` reads a factor's least pivot in thresholds.
 """
 from __future__ import annotations
 
@@ -59,15 +67,16 @@ _PATH_IDS = {"cta": 1, "cluster": 2}
 
 def pivot_threshold(n, dtype):
     """The kernel's pivot test: a block fails when some pivot ``p_j <=
-    pivot_threshold(n, dtype) * D_jj``, i.e. ``sqrt(n) u`` with ``u`` the
-    dtype's unit roundoff (eps / 2)."""
-    return math.sqrt(n) * torch.finfo(dtype).eps / 2
+    pivot_threshold(n, dtype) * D_jj``, i.e. ``2 n u`` in f64 and
+    ``sqrt(n) u`` in f32, with ``u`` the dtype's unit roundoff (eps / 2)."""
+    u = torch.finfo(dtype).eps / 2
+    return 2 * n * u if dtype == torch.float64 else math.sqrt(n) * u
 
 
 def scaled_pivots(D, L):
     """Per block, the least pivot ``L_jj^2`` over its threshold
-    ``pivot_threshold(n) * D_jj`` (in f64; NaN where ``L`` is NaN): above 1
-    the kernel's pivot test passes."""
+    ``pivot_threshold(n, dtype) * D_jj`` (in f64; NaN where ``L`` is NaN):
+    above 1 the kernel's pivot test passes."""
     n = D.shape[-1]
     piv = torch.diagonal(L, dim1=-2, dim2=-1).double() ** 2
     thr = torch.diagonal(D, dim1=-2, dim2=-1).double() * pivot_threshold(
@@ -75,11 +84,15 @@ def scaled_pivots(D, L):
     return (piv / thr).min(dim=-1).values
 
 
-def pivot_margin(n):
+def pivot_margin(n, dtype):
     """How far above the threshold, in thresholds, a pivot may sit in a
-    block that one version factors and the other fails: twice the worst
-    rounding error of a pivot, ``2 n u D_jj``, over the threshold."""
-    return 2.0 * math.sqrt(n)
+    block that one version factors and the other fails, given that two
+    computed pivots differ by at most twice the worst rounding error,
+    ``2 n u D_jj``.  f64: only K1 fails such a block, and the plain
+    version's pivot is at most the threshold plus that, 2 thresholds.
+    f32: that error over the threshold, ``2 sqrt(n)``, on the factoring
+    side."""
+    return 2.0 if dtype == torch.float64 else 2.0 * math.sqrt(n)
 
 
 class LaunchPlan(NamedTuple):

@@ -18,6 +18,18 @@ the f64 step set and the f64 factorizations are compared the same way.
 Prints one JSON line per run: status, iterations, objective, the host
 returns, and per step (f32 step set?, iteration, status, mu, the
 refinement residual, delta_w, line-search trials).
+
+``--size 2000 --factor-dtype float64 --compare 100`` is the reproduction
+of ROADMAP 3.7, K1's f64 pivot test on opf-2000 (NVIDIA H100 80GB HBM3,
+700 W).  With the test at ``sqrt(n) u D_jj`` the K1 run crawled from
+iteration 18 on (alpha ~2e-4 a step; ``acceptable`` when cut at 60), the
+scenario blocks indefinite at round-off level, and over 60 compared
+factorizations the plain version rejected one block that K1 factored
+(K1's least pivot 21.2 eps D_jj).  With the test at ``2 n u D_jj`` the
+K1 run ends ``first_order`` in 16 iterations at 5744.48231909455 (the
+plain version in K1's place: 45, at 5744.482319094537); over all 20 f64
+factorizations K1 rejects 2,776 blocks that the plain version factors,
+and the plain version none that K1 factors (``failed_plain_only`` 0).
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """K1's device time under other launch configurations than its plan's.
 
-    python -m infiniteexamodels_jl_torch.tools.k1_sweep
+    python -m infiniteexamodels_jl_torch.tools.k1_sweep [--factorizations]
 
 Calls the kernel's C entry point directly with each configuration and
 prints one JSON object per line: the card's name and power limit, then for
@@ -13,9 +13,17 @@ the threads of the CTA path (128, 256 at the quad-1000 band shapes,
 n = 64; 32 ... 256 at n = 8 ... 64 with 16 and with 2,048 blocks,
 ``planned`` marking the plan's own choice).  Two rounds, to show the
 spread.  Exits non-zero when CUDA is absent.
+
+With ``--factorizations`` it times instead, with the plan's own
+configuration, one factorization at each of chip_smoke's K1 shapes:
+quad-1000's 11 BCR levels of 64 (f64 and f32), the (16,001, 24) scenario
+blocks (f64 and f32) and quad-16000's 15 levels of 64 (f64), summed over
+the levels, three rounds; so two trees' kernels (``PYTHONPATH``) compare
+within one call.
 """
 from __future__ import annotations
 
+import argparse
 import itertools
 import json
 import subprocess
@@ -93,7 +101,41 @@ def _time(D, plan, reps=20):
     return graph_ms(call, reps), rel
 
 
-def main():
+def bcr_levels(nb):
+    """The blocks of each K1 launch of one band factorization of ``nb``
+    blocks: the odd blocks of every BCR level, then the root."""
+    out = []
+    while nb > 1:
+        out.append(nb // 2)
+        nb = (nb + 1) // 2
+    return tuple(out) + (1,)
+
+
+FACTORIZATIONS = {      # case: (blocks of each launch, n, dtype)
+    "quad-1000 f64": (bcr_levels(688), 64, torch.float64),
+    "quad-1000 f32": (bcr_levels(688), 64, torch.float32),
+    "opf-16000 f64": ((16001,), 24, torch.float64),
+    "opf-16000 f32": ((16001,), 24, torch.float32),
+    "quad-16000 f64": (bcr_levels(11000), 64, torch.float64),
+}
+
+
+def factorizations():
+    """Device ms of one factorization per FACTORIZATIONS case (the plan's
+    configuration, summed over its launches), three rounds."""
+    for rnd in range(3):
+        for case, (levels, n, dt) in FACTORIZATIONS.items():
+            ms = sum(_time(_spd(nb, n, dt, seed=4 + i), None)[0]
+                     for i, nb in enumerate(levels))
+            print(json.dumps({"round": rnd, "factorization": case,
+                              "launches": len(levels), "device_ms": ms}))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--factorizations", action="store_true",
+                    help="time one factorization at chip_smoke's shapes")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("k1_sweep: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
@@ -102,6 +144,9 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(json.dumps({"card": card}))
+    if args.factorizations:
+        factorizations()
+        return 0
     for rnd in range(2):
         for nb, n, dt in [(2, 512, torch.float64), (2, 512, torch.float32),
                           (8, 256, torch.float64), (8, 176, torch.float64),

@@ -1,7 +1,10 @@
 """K1 (``chol_linv``): the plain PyTorch version against the JAX package's
 ``_chol_linv`` (f64, XLA) and the Pallas kernel in interpret mode (f32), the
-NaN/ok contract, and the wrapper's checks.  The CUDA kernel itself runs only
-on the card: tests/test_torch_kernels_cuda.py."""
+NaN/ok contract, the wrapper's checks, and the rounding model behind the
+kernel's f64 pivot test.  The CUDA kernel itself runs only on the card:
+tests/test_torch_kernels_cuda.py."""
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,7 +15,7 @@ from infiniteexamodels_jl_tpu.solvers.block_tridiag import (
 from infiniteexamodels_jl_tpu.solvers.pallas_chol import chol_linv_pallas
 from infiniteexamodels_jl_torch.solvers.chol_linv import (
     CTA_THREADS, MAX_THREADS, SMEM_LIMIT, STATIC_SMEM, chol_linv,
-    chol_linv_reference, launch_plan)
+    chol_linv_reference, launch_plan, pivot_margin, pivot_threshold)
 
 
 def _spd_batch(nb, n, seed=0, dtype=np.float64):
@@ -94,6 +97,80 @@ def test_wrapper_rejects(bad, err):
         chol_linv(bad())
 
 
+@pytest.mark.parametrize("n", [8, 24, 64])
+def test_pivot_threshold_by_dtype(n):
+    """The kernel's pivot test: twice a pivot's worst-case rounding error
+    in f64, its typical error in f32 (u = eps / 2)."""
+    assert pivot_threshold(n, torch.float64) == 2 * n * 2.0 ** -53
+    assert pivot_threshold(n, torch.float32) == math.sqrt(n) * 2.0 ** -24
+    assert pivot_margin(n, torch.float64) == 2.0
+    assert pivot_margin(n, torch.float32) == 2.0 * math.sqrt(n)
+
+
+def _near_singular_batch(nb, n, seed):
+    """Blocks ``L0 L0^T + p e_n e_n^T`` (``L0`` lower triangular from a
+    seed: diagonal in [0.5, 1] but its last entry 0, entries below the
+    diagonal under 1 / n, the last row of unit norm so that D_nn = 1),
+    formed in extended precision and rounded to f64, with the last pivot
+    p at 2 v^3 f64 thresholds, v uniform in [-1, 1]: round-off of either
+    sign, most of it near zero."""
+    rng = np.random.default_rng(seed)
+    L0 = np.tril(rng.uniform(-1.0, 1.0, (nb, n, n)), -1) / n
+    L0[:, np.arange(n), np.arange(n)] = rng.uniform(0.5, 1.0, (nb, n))
+    L0[:, -1, -1] = 0.0
+    L0[:, -1] /= np.linalg.norm(L0[:, -1], axis=-1, keepdims=True)
+    Ll = L0.astype(np.longdouble)
+    D = np.einsum("bik,bjk->bij", Ll, Ll)
+    D[:, -1, -1] += 2.0 * rng.uniform(-1.0, 1.0, nb) ** 3 * pivot_threshold(
+        n, torch.float64)
+    D = D.astype(np.float64)
+    return 0.5 * (D + D.transpose(0, 2, 1))
+
+
+def _reversed_column_cholesky_pivots(D):
+    """The pivots of a plain column Cholesky of each block, every sum taken
+    from its last term to its first (an order independent of LAPACK's);
+    NaN from a block's first pivot <= 0 on."""
+    nb, n, _ = D.shape
+    L = np.zeros_like(D)
+    piv = np.empty((nb, n))
+    for j in range(n):
+        p = D[:, j, j].copy()
+        col = D[:, j + 1:, j].copy()
+        for k in range(j - 1, -1, -1):
+            p -= L[:, j, k] * L[:, j, k]
+            col -= L[:, j + 1:, k] * L[:, j, k][:, None]
+        p = np.where(p > 0, p, np.nan)
+        piv[:, j] = p
+        L[:, j, j] = np.sqrt(p)
+        L[:, j + 1:, j] = col / L[:, j, j][:, None]
+    return piv
+
+
+@pytest.mark.parametrize("n", [8, 24, 64])
+def test_f64_pivot_threshold_covers_two_choleskys(n):
+    """The model behind K1's f64 test at ``2 n u D_jj``: two backward-stable
+    Choleskys' pivots differ by less than it, so a block that one fails
+    (a computed pivot <= 0) has the other's least pivot at or under it.
+    LAPACK (``cholesky_ex``) and a column Cholesky summing in reverse
+    order, on blocks whose last pivot is round-off of either sign: every
+    block either fails, the other factors with its least pivot at most one
+    f64 threshold, and the two disagree on some blocks."""
+    D = _near_singular_batch(512, n, seed=2000 + n)
+    L, info = torch.linalg.cholesky_ex(torch.as_tensor(D))
+    thr = pivot_threshold(n, torch.float64) * np.diagonal(D, 0, 1, 2)
+    least_lapack = (np.diagonal(L.numpy(), 0, 1, 2) ** 2 / thr).min(-1)
+    fail_lapack = info.numpy() != 0
+    piv = _reversed_column_cholesky_pivots(D)
+    fail_rev = np.isnan(piv).any(-1)
+    least_rev = (piv / thr).min(-1)
+    only_lapack, only_rev = fail_lapack & ~fail_rev, fail_rev & ~fail_lapack
+    assert only_lapack.any() or only_rev.any()
+    assert (least_rev[only_lapack] <= 1.0).all(), least_rev[only_lapack]
+    assert (least_lapack[only_rev] <= 1.0).all(), least_lapack[only_rev]
+    # the clearly SPD blocks factor in both
+    assert not (fail_lapack | fail_rev)[np.minimum(
+        least_lapack, least_rev) > 1.0].any()
 
 
 # the documented boundaries: CTA while a block and its inverse fit in

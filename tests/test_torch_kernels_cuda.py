@@ -166,12 +166,12 @@ def _near_indefinite_batch(n, dtype, seed):
     last row of unit norm so that D_nn = 1), the product taken in extended
     precision, then rounded to ``dtype``: the last pivot is p, set to s
     thresholds (``pivot_threshold(n, dtype) * D_nn``) for 33 values of s
-    from -3 sqrt(n) to 3 sqrt(n).  Blocks with |s| <= ``pivot_margin(n)``
-    + 1 have a last pivot within round-off of the threshold or of zero,
-    whose computed sign depends on the order of the sums; the others are
-    clearly SPD or clearly not (farther from zero than any pivot's worst
-    rounding error, n u D_nn, plus the threshold).  Returns the blocks and
-    s."""
+    from -3 sqrt(n) to 3 sqrt(n).  Blocks with |s| <= ``pivot_margin(n,
+    dtype)`` + 1 have a last pivot within round-off of the threshold or of
+    zero, whose computed sign depends on the order of the sums; the others
+    are clearly SPD or clearly not (farther from zero than any pivot's
+    worst rounding error, n u D_nn, plus the threshold).  Returns the
+    blocks and s."""
     rng = np.random.default_rng(seed)
     s = np.linspace(-3.0, 3.0, 33) * np.sqrt(n)
     L0 = np.tril(rng.uniform(-1.0, 1.0, (s.size, n, n)), -1) / n
@@ -208,14 +208,15 @@ def _launch(D, path):
 @pytest.mark.parametrize("n", [8, 24, 64])
 def test_pivot_test_on_near_indefinite_blocks(n, dtype, path):
     """K1's pivot test (``chol_linv.pivot_threshold``: a block fails when
-    some pivot p_j <= sqrt(n) u D_jj) against LAPACK's (p_j <= 0, the
-    plain version) on blocks whose least pivot is round-off of either sign.
-    The clearly indefinite blocks fail in both, the clearly SPD ones
-    factor in both; in the band between, every block K1 factors passes its
-    test by its own pivots, every block it fails is NaN throughout, and a
-    block that one version factors and the other fails has the factoring
-    side's least pivot within ``pivot_margin(n)`` thresholds (the stated
-    margin: twice a pivot's worst-case rounding error)."""
+    some pivot p_j <= 2 n u D_jj in f64, sqrt(n) u D_jj in f32) against
+    LAPACK's (p_j <= 0, the plain version) on blocks whose least pivot is
+    round-off of either sign.  The clearly indefinite blocks fail in both,
+    the clearly SPD ones factor in both; in the band between, every block
+    K1 factors passes its test by its own pivots, every block it fails is
+    NaN throughout, and a block that one version factors and the other
+    fails has the factoring side's least pivot within ``pivot_margin(n,
+    dtype)`` thresholds (the stated margin).  In f64 K1 factors no block
+    that the plain version fails."""
     _need_card()
     D, t = _near_indefinite_batch(n, dtype, seed=1000 + n)
     D = D.to("cuda").contiguous()
@@ -227,7 +228,8 @@ def test_pivot_test_on_near_indefinite_blocks(n, dtype, path):
     nan = torch.isnan(L).flatten(1).all(1) & torch.isnan(X).flatten(1).all(1)
     fin_r = torch.isfinite(Lr).flatten(1).all(1)
     assert torch.equal(okb, fin) and torch.equal(~okb, nan)
-    clear = np.abs(t) > pivot_margin(n) + 1
+    margin = pivot_margin(n, dtype)
+    clear = np.abs(t) > margin + 1
     clear_bad = torch.as_tensor(clear & (t < 0))
     clear_good = torch.as_tensor(clear & (t > 0))
     assert bool(clear_bad.any()) and bool(clear_good.any())
@@ -237,8 +239,9 @@ def test_pivot_test_on_near_indefinite_blocks(n, dtype, path):
     rho_r = scaled_pivots(D, Lr).cpu()
     okb, fin_r = okb.cpu(), fin_r.cpu()
     assert bool((rho[okb] > 1 - 1e-3).all()), rho[okb].min()
-    margin = pivot_margin(n)
     only_k1, only_plain = okb & ~fin_r, ~okb & fin_r
+    if dtype == torch.float64:
+        assert not bool(only_k1.any()), rho[only_k1]
     assert bool((rho[only_k1] <= margin).all()), rho[only_k1]
     assert bool((rho_r[only_plain] <= margin).all()), rho_r[only_plain]
     band = torch.as_tensor(~clear)
