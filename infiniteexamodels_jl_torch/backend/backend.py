@@ -21,6 +21,7 @@ from ..solvers import (IpmSolver, translate_termination_status,
                        ResultStatus)
 from ..transcribe import transcribe, TranscriptionData  # noqa: F401
 from ..utils.device import resolve_device
+from ..utils.timers import span, spanned
 from ..modeling.refs import (
     InfiniteParameter, FiniteParameter, FiniteVar, InfiniteVar,
     DerivativeRef, SemiInfiniteVar, PointVar, ParameterFunctionRef,
@@ -88,6 +89,7 @@ class ExaTranscriptionBackend:
         self.data = TranscriptionData()
         return self
 
+    @spanned("backend.build")
     def build(self, inf_model=None):
         inf_model = inf_model or self._inf_model
         self.empty()
@@ -150,6 +152,7 @@ class ExaTranscriptionBackend:
         return new
 
     # -- solve (reference JuMP.optimize!, infiniteopt_backend.jl:259-271) --
+    @spanned("backend.optimize")
     def optimize(self, inf_model=None):
         inf_model = inf_model or self._inf_model
         if not self.ready:
@@ -160,14 +163,17 @@ class ExaTranscriptionBackend:
         options = {k: v for k, v in self.options.items() if k != "solver"}
         t0 = time.time()
         # push host-side core mutations (start values, theta) to the device
-        self.model.refresh_from_core()
+        with span("backend.refresh"):
+            self.model.refresh_from_core()
         if self.solver is None:
             sol_options = self._process_options(options)
-            self.solver = solver_type(self.model, **sol_options)
+            with span("ipm.setup"):
+                self.solver = solver_type(self.model, **sol_options)
             self.results = self.solver.solve()
         else:
             sol_options = self._process_options(options)
-            self.solver.reset(self.model)
+            with span("ipm.setup"):
+                self.solver.reset(self.model)
             self.results = self.solver.solve(**sol_options)
         self.solve_time = time.time() - t0
         return self.results

@@ -19,6 +19,7 @@ from .refs import (
 )
 from .sets import IntervalDomain, Distribution, ProductDist
 from .derivatives import FiniteDifference
+from ..utils.timers import spanned
 
 
 class Infinite:
@@ -386,6 +387,7 @@ class InfiniteModel:
         self.backend.set_optimizer(solver_type, **params)
 
     # -- in-place updates (reference infiniteopt_backend.jl:511-592) ------
+    @spanned("model.set_parameter_value")
     def set_parameter_value(self, pref, value):
         if isinstance(pref, FiniteParameter):
             pref.value = float(value)

@@ -20,6 +20,7 @@ import torch
 from torch.func import grad, grad_and_value, hessian, jvp, vmap
 
 from ..utils.device import resolve_device
+from ..utils.timers import spanned
 from .compile import CompiledFamily
 from .segsum import SegmentSum
 
@@ -310,6 +311,7 @@ class SimdModel:
         return total
 
     # -- evaluations (user sense; solvers fold in self.sense) ------------
+    @spanned("ad.obj")
     def obj(self, x, theta):
         return self._obj_total(self._stream(
             "obj", [self._fam_vals(fam, x, theta) for fam in self.obj_fams]))
@@ -321,11 +323,13 @@ class SimdModel:
             return self._zeros(self.nvar)
         return self._grad_plan(self._stream("grad", parts))
 
+    @spanned("ad.cons")
     def cons(self, x, theta):
         return self._stream("cons", [self._fam_vals(f, x, theta)
                                      for f in self.con_fams])
 
     # -- fused value+derivative sweeps (one vmapped pass per family) ------
+    @spanned("ad.obj_and_grad")
     def obj_and_grad(self, x, theta):
         vals, parts = [], []
         for fam in self.obj_fams:
@@ -341,6 +345,7 @@ class SimdModel:
              else self._zeros(self.nvar))
         return self._obj_total(both[:nobj]), g
 
+    @spanned("ad.cons_and_jac")
     def cons_and_jac(self, x, theta):
         vals, jparts = [], []
         for fam in self.con_fams:
@@ -384,6 +389,7 @@ class SimdModel:
                              .reshape(-1))
         return self._stream("hess", parts)
 
+    @spanned("ad.hvp")
     def hvp_lag(self, x, theta, lam, sigma, v):
         """Lagrangian Hessian-vector product
         ``(sigma * H_f + sum_i lam_i * H_{c_i}) @ v`` without materializing
@@ -414,6 +420,7 @@ class SimdModel:
             return torch.zeros(self.nvar, dtype=v.dtype, device=v.device)
         return self._hvp_plan(self._stream("hvp", parts))
 
+    @spanned("ad.kkt_vals")
     def kkt_vals(self, x, theta, lam, sigma, d, dtype=None):
         """COO values of the condensed-KKT sparse part
         ``sigma*H_f + sum lam_i H_ci + J^T diag(d) J`` on the Hessian

@@ -47,6 +47,7 @@ from typing import NamedTuple
 import torch
 
 from ..utils import cuda_build
+from ..utils.timers import span
 
 MAX_N = 512          # the band backend's max_block
 _SYMBOLS = {torch.float64: "ixm_chol_linv_f64",
@@ -178,10 +179,13 @@ def _kernel(dtype):
 
 def chol_linv(D):
     """Batched ``(L, L^{-1}, ok)``: the CUDA kernel for a CUDA tensor, the
-    plain version for a CPU tensor, an error for anything else."""
+    plain version for a CPU tensor, an error for anything else.  Each
+    launch (each call of the plain version) runs in the span
+    ``k1.chol_linv``."""
     _check(D)
     if D.device.type == "cpu":
-        return chol_linv_reference(D)
+        with span("k1.chol_linv"):
+            return chol_linv_reference(D)
     if D.device.type != "cuda":
         raise ValueError(f"chol_linv: unsupported device {D.device}")
     nb, n = D.shape[0], D.shape[-1]
@@ -194,7 +198,7 @@ def chol_linv(D):
     sms = torch.cuda.get_device_properties(D.device).multi_processor_count
     plan = launch_plan(n, D.dtype, nb, sms)
     stream = torch.cuda.current_stream(D.device).cuda_stream
-    with torch.cuda.device(D.device):
+    with span("k1.chol_linv"), torch.cuda.device(D.device):
         err = fn(D.data_ptr(), L.data_ptr(), Linv.data_ptr(),
                  okb.data_ptr(), nb, n, _PATH_IDS[plan.path], plan.ctas,
                  plan.threads, plan.smem_bytes, plan.ld, stream)

@@ -36,6 +36,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.timers import Recorder, count, phases, span
 from .kkt import DenseKKT
 from .results import ExecutionStats
 
@@ -261,6 +262,13 @@ def _amax(a):
 
 def _i32(v, device):
     return torch.as_tensor(v, dtype=torch.int32, device=device)
+
+
+def _read(t, to=bool):
+    """``to(t)`` of a device value: on the card the host waits there for
+    the queue, and the span times that wait."""
+    with span("ipm.host_sync"):
+        return to(t)
 
 
 class IpmSolver:
@@ -540,6 +548,16 @@ class IpmSolver:
     # one IPM iteration
     # ------------------------------------------------------------------
     def _step(self, st: IpmState, consts, kkt=None):
+        """One IPM iteration from ``st``, in five spans: the iterate's
+        evaluations and KKT error (``ipm.eval``), the barrier update
+        (``ipm.barrier``), the regularized Newton direction
+        (``ipm.direction``), the line search (``ipm.line_search``) and the
+        dual step, filter and state (``ipm.update``)."""
+        with phases() as phase:
+            return self._step_phases(st, consts, kkt, phase)
+
+    def _step_phases(self, st, consts, kkt, phase):
+        phase("ipm.eval")
         kkt = kkt if kkt is not None else self.kkt
         m = self.model
         o = self.opts
@@ -632,6 +650,7 @@ class IpmSolver:
                                                 ACCEPTABLE, RUNNING))))
 
         # -- barrier update (may fire repeatedly) -------------------------
+        phase("ipm.barrier")
         # adaptive mode: the next mu is the LOQO centrality rule
         # sigma = 0.1*min(0.05*(1-xi)/xi, 2)^3 applied to the average
         # complementarity, clipped into [monotone schedule, 0.8*mu]
@@ -654,7 +673,8 @@ class IpmSolver:
         mu_floor = tol * o["mu_min_fraction"]
         while True:
             E_mu = self._kkt_error(st, consts, grad, jvals, cval, mu)[0]
-            if not bool((E_mu <= o["kappa_epsilon"] * mu) & (mu > mu_floor)):
+            if not _read((E_mu <= o["kappa_epsilon"] * mu)
+                         & (mu > mu_floor)):
                 break
             mu_new = torch.maximum(
                 mu_floor,
@@ -672,6 +692,7 @@ class IpmSolver:
             mu = mu_new
 
         # -- barrier-scaled quantities ------------------------------------
+        phase("ipm.direction")
         z = torch.cat([st.x, st.s])
         dl = torch.where(has_l, z - lz, 1.0)
         du = torch.where(has_u, uz - z, 1.0)
@@ -777,7 +798,7 @@ class IpmSolver:
             best_rr = torch.linalg.norm(r) / rhs_norm
             prev_best = torch.full((), inf, dtype=dt, device=dev)
             i = 0
-            while i < refine_max and bool(
+            while i < refine_max and _read(
                     (best_rr > refine_tol)
                     & (best_rr < refine_contract * prev_best)):
                 Kp = Kmv(p)
@@ -808,9 +829,12 @@ class IpmSolver:
             # model-side values are for UNSCALED f and c: fold scalings in
             # (internal y multiplies scaled c_i = sc_i*c_i; scaled J = sc*J)
             sc = consts["sc"]
-            K = kkt.assemble(st.x, consts["theta"], st.y * sc,
-                             consts["sf"] * m.sense, D * sc * sc, diag_extra)
-            fac, ok = kkt.factor(K)
+            with span("kkt.assemble"):
+                K = kkt.assemble(st.x, consts["theta"], st.y * sc,
+                                 consts["sf"] * m.sense, D * sc * sc,
+                                 diag_extra)
+            with span("kkt.factor"):
+                fac, ok = kkt.factor(K)
 
             rhs2 = pulled(rp + inv_ss * rs)
             rhs = -(rx + m.jtprod(jvals, D * rhs2))
@@ -822,60 +846,61 @@ class IpmSolver:
             # needs the replicated vector every round, so it stays there
             use_tl = getattr(kkt, "tlayout", False) and not ir_ref \
                 and not exact
-            if exact:
-                # an exact backend (the host LDL) needs no refinement
-                dx = kkt.solve(fac, rhs)
-                rr_final = zero
-                ref_ok = torch.ones((), dtype=torch.bool, device=dev)
-            elif ir_ref:
-                dx, rr_final = refine_pcg(
-                    fac, rhs, kkt.solve(fac, rhs),
-                    torch.linalg.norm(rhs) + tiny, D, diag_extra)
-                ref_ok = rr_final <= refine_accept
-            else:
-                # residual-driven iterative refinement of the CONDENSED
-                # solve, over either layout: exits early when the relative
-                # residual is small or stops contracting; a final residual
-                # above refine_accept marks the step failed so the
-                # regularization ladder escalates (or the f32 step set
-                # demotes)
-                if use_tl:
-                    vnorm, vsub, vadd, vsel = (kkt.tl_norm, kkt.tl_sub,
-                                               kkt.tl_add, kkt.tl_where)
-                    ksolve = lambda r: kkt.solve_tl(fac, r)   # noqa: E731
-                    kmv = lambda w: kkt.matvec_tl(K, w)       # noqa: E731
-                    rhs_v = kkt.tl_gather(rhs)
+            with span("kkt.solve"):
+                if exact:
+                    # an exact backend (the host LDL) needs no refinement
+                    dx = kkt.solve(fac, rhs)
+                    rr_final = zero
+                    ref_ok = torch.ones((), dtype=torch.bool, device=dev)
+                elif ir_ref:
+                    dx, rr_final = refine_pcg(
+                        fac, rhs, kkt.solve(fac, rhs),
+                        torch.linalg.norm(rhs) + tiny, D, diag_extra)
+                    ref_ok = rr_final <= refine_accept
                 else:
-                    vnorm, vsub, vadd = (torch.linalg.norm, torch.sub,
-                                         torch.add)
-                    vsel = torch.where
-                    ksolve = lambda r: kkt.solve(fac, r)      # noqa: E731
-                    kmv = lambda w: kkt.matvec(K, w)          # noqa: E731
-                    rhs_v = rhs
-                rhs_norm = torch.linalg.norm(rhs) + tiny
-                dx = ksolve(rhs_v)
-                resid = vsub(rhs_v, kmv(dx))
-                prev = torch.full((), inf, dtype=dt, device=dev)
-                i = 0
-                while True:
-                    rr = vnorm(resid) / rhs_norm
-                    if not (i < refine_max and bool(
-                            (rr > refine_tol)
-                            & (rr < refine_contract * prev))):
-                        break
-                    dxn = vadd(dx, ksolve(resid))
-                    residn = vsub(rhs_v, kmv(dxn))
-                    rrn = vnorm(residn) / rhs_norm
-                    # keep the better iterate if refinement diverges
-                    worse = rrn > rr
-                    dx = vsel(worse, dx, dxn)
-                    resid = vsel(worse, resid, residn)
-                    prev = rr
-                    i += 1
-                rr_final = vnorm(resid) / rhs_norm
-                ref_ok = rr_final <= refine_accept
-                if use_tl:
-                    dx = kkt.tl_scatter(dx)
+                    # residual-driven iterative refinement of the CONDENSED
+                    # solve, over either layout: exits early when the relative
+                    # residual is small or stops contracting; a final residual
+                    # above refine_accept marks the step failed so the
+                    # regularization ladder escalates (or the f32 step set
+                    # demotes)
+                    if use_tl:
+                        vnorm, vsub, vadd, vsel = (kkt.tl_norm, kkt.tl_sub,
+                                                   kkt.tl_add, kkt.tl_where)
+                        ksolve = lambda r: kkt.solve_tl(fac, r)   # noqa: E731
+                        kmv = lambda w: kkt.matvec_tl(K, w)       # noqa: E731
+                        rhs_v = kkt.tl_gather(rhs)
+                    else:
+                        vnorm, vsub, vadd = (torch.linalg.norm, torch.sub,
+                                             torch.add)
+                        vsel = torch.where
+                        ksolve = lambda r: kkt.solve(fac, r)      # noqa: E731
+                        kmv = lambda w: kkt.matvec(K, w)          # noqa: E731
+                        rhs_v = rhs
+                    rhs_norm = torch.linalg.norm(rhs) + tiny
+                    dx = ksolve(rhs_v)
+                    resid = vsub(rhs_v, kmv(dx))
+                    prev = torch.full((), inf, dtype=dt, device=dev)
+                    i = 0
+                    while True:
+                        rr = vnorm(resid) / rhs_norm
+                        if not (i < refine_max and _read(
+                                (rr > refine_tol)
+                                & (rr < refine_contract * prev))):
+                            break
+                        dxn = vadd(dx, ksolve(resid))
+                        residn = vsub(rhs_v, kmv(dxn))
+                        rrn = vnorm(residn) / rhs_norm
+                        # keep the better iterate if refinement diverges
+                        worse = rrn > rr
+                        dx = vsel(worse, dx, dxn)
+                        resid = vsel(worse, resid, residn)
+                        prev = rr
+                        i += 1
+                    rr_final = vnorm(resid) / rhs_norm
+                    ref_ok = rr_final <= refine_accept
+                    if use_tl:
+                        dx = kkt.tl_scatter(dx)
             dy = D * (m.jprod(jvals, dx) + rhs2)
             ds = inv_ss * (dy - rs)
             ok = ok & torch.isfinite(dx).all() & \
@@ -911,10 +936,12 @@ class IpmSolver:
         # refinement short of its acceptance) ends the ladder: the host
         # hands the state to the f64 step set
         need_demote = ladder_done = ok_f
-        while tries < o["max_reg_tries"] and not bool(ladder_done):
+        while tries < o["max_reg_tries"] and not _read(ladder_done):
             if tries == 0:
                 dw_new = first_dw
             else:
+                # each retry assembles again, and so re-runs the Hessian sweep
+                count("kkt.regularizations")
                 dw_new = torch.where(dw == 0.0, bump_from_zero, dw * kw_plus)
             dx, ds, dy, fac_ok, ref_ok, rr_f, fac_f = make_step(
                 dw_new, delta_c_floor)
@@ -939,9 +966,10 @@ class IpmSolver:
             return torch.clamp(torch.minimum(_amin_inf(a_l), _amin_inf(a_u)),
                                max=1.0)
 
+        # -- filter line search ------------------------------------------
+        phase("ipm.line_search")
         alpha_max = ftb_primal(torch.cat([dx, ds]))
 
-        # -- filter line search ------------------------------------------
         theta_c = torch.sum(torch.abs(rp))
         phi_c = self._phi(st.x, st.s, fval, lz, uz, consts, mu)
         gphi_x = grad - mu_dl[:n] + mu_du[:n] + damp[:n]
@@ -951,13 +979,14 @@ class IpmSolver:
         gt, gp = o["gamma_theta"], o["gamma_phi"]
 
         def trial_at(dxa, dsa, alpha):
-            xt = st.x + alpha * dxa
-            stt = st.s + alpha * dsa
-            ft = self._feval(xt, consts)
-            ct = self._ceval(xt, consts)
-            theta_t = torch.sum(torch.abs(ct - stt))
-            phi_t = self._phi(xt, stt, ft, lz, uz, consts, mu)
-            return theta_t, phi_t
+            with span("ipm.trial"):
+                xt = st.x + alpha * dxa
+                stt = st.s + alpha * dsa
+                ft = self._feval(xt, consts)
+                ct = self._ceval(xt, consts)
+                theta_t = torch.sum(torch.abs(ct - stt))
+                phi_t = self._phi(xt, stt, ft, lz, uz, consts, mu)
+                return theta_t, phi_t
 
         idx = torch.arange(FILTER_SIZE, device=dev)
 
@@ -996,13 +1025,14 @@ class IpmSolver:
             D_f = 1.0 / damped(inv_ss_f + delta_c_floor)
             need_soc = ok_f & (~acc0) & (theta_t0 >= theta_c)
             use_soc = torch.zeros((), dtype=torch.bool, device=dev)
-            if bool(need_soc):
+            if _read(need_soc):
                 stt = st.s + alpha_max * ds
                 ct = self._ceval(st.x + alpha_max * dx, consts)
                 rp_soc = alpha_max * rp + (ct - stt)
                 rhs2s = pulled(rp_soc + inv_ss_f * rs)
                 rhs_s = -(rx + m.jtprod(jvals, D_f * rhs2s))
-                dxs = kkt.solve(fac_f, rhs_s)
+                with span("kkt.solve"):
+                    dxs = kkt.solve(fac_f, rhs_s)
                 dys = D_f * (m.jprod(jvals, dxs) + rhs2s)
                 dss = inv_ss_f * (dys - rs)
                 good = (torch.isfinite(dxs).all()
@@ -1016,7 +1046,7 @@ class IpmSolver:
                 # kappa_soc guard (W-B A-5.9): the correction must REDUCE
                 # infeasibility
                 use_soc = good & acc_s & (th_s <= 0.99 * theta_c)
-            if bool(use_soc):
+            if _read(use_soc):
                 dx, ds, dy = dxs, dss, dys
                 start_alpha = a_soc
                 theta_init, phi_init, ftype_init = th_s, ph_s, ftype_s
@@ -1031,7 +1061,7 @@ class IpmSolver:
 
         alpha, accepted, f_type = start_alpha, start_acc, ftype_init
         ls_iters = 1
-        while ls_iters < o["max_backtracks"] and not bool(accepted):
+        while ls_iters < o["max_backtracks"] and not _read(accepted):
             theta_t, phi_t = trial_at(dx, ds, alpha)
             acc, f_type = accept_test(alpha, theta_t, phi_t)
             alpha = torch.where(acc, alpha, alpha * 0.5)
@@ -1040,6 +1070,7 @@ class IpmSolver:
 
         # dual directions from complementarity linearization (for the
         # FINAL direction, post-SOC) + their fraction-to-boundary cap
+        phase("ipm.update")
         dz = torch.cat([dx, ds])
         acl = torch.where(has_l, dl * st.zl - mu, 0.0)
         acu = torch.where(has_u, du * st.zu - mu, 0.0)
@@ -1191,7 +1222,7 @@ class IpmSolver:
         y = torch.zeros(m.ncon, dtype=m.dtype, device=m.device)
         p, r, rs = b, b, bb
         k = 0
-        while k < 200 and bool(rs > 1e-24 * bb):
+        while k < 200 and _read(rs > 1e-24 * bb):
             Ap = m.jprod(jvals, m.jtprod(jvals, p)) + p
             alpha = rs / (torch.dot(p, Ap) + tiny)
             y = y + alpha * p
@@ -1258,18 +1289,21 @@ class IpmSolver:
         delta = torch.as_tensor(o["resto_delta_init"], dtype=dt, device=dev)
         th, r2 = theta_of(x)
         it = 0
-        while it < o["resto_max_iter"] and bool(r2 > r2_exit):
+        while it < o["resto_max_iter"] and _read(r2 > r2_exit):
             cval, jvals = m.cons_and_jac(x, consts["theta"])
             cval = cval * sc
             jvals = jvals * sc[m.jac_rows]
             r = violation(cval)
             grad_phi = m.jtprod(jvals, r) + zeta * DR * (x - x_ref)
             zero_y = torch.zeros(m.ncon, dtype=dt, device=dev)
-            K = self.kkt.assemble(x, consts["theta"], zero_y,
-                                  torch.zeros((), dtype=dt, device=dev),
-                                  sc * sc, zeta * DR + delta)
-            fac, okf = self.kkt.factor(K)
-            dx = self.kkt.solve(fac, -grad_phi)
+            with span("kkt.assemble"):
+                K = self.kkt.assemble(x, consts["theta"], zero_y,
+                                      torch.zeros((), dtype=dt, device=dev),
+                                      sc * sc, zeta * DR + delta)
+            with span("kkt.factor"):
+                fac, okf = self.kkt.factor(K)
+            with span("kkt.solve"):
+                dx = self.kkt.solve(fac, -grad_phi)
             okf = okf & torch.isfinite(dx).all()
             # fraction-to-boundary on the variable box
             neg, pos = dx < 0, dx > 0
@@ -1297,16 +1331,16 @@ class IpmSolver:
         c = self._ceval(x, consts)
         k1, k2 = o["bound_push"], o["bound_frac"]
         both = hl_s & hu_s
-        span = torch.where(both, uzs - lzs, 1.0)
+        width = torch.where(both, uzs - lzs, 1.0)
         pl = torch.where(both,
                          torch.minimum(k1 * torch.clamp(torch.abs(lzs),
                                                         min=1.0),
-                                       k2 * span),
+                                       k2 * width),
                          k1 * torch.clamp(torch.abs(lzs), min=1.0))
         pu = torch.where(both,
                          torch.minimum(k1 * torch.clamp(torch.abs(uzs),
                                                         min=1.0),
-                                       k2 * span),
+                                       k2 * width),
                          k1 * torch.clamp(torch.abs(uzs), min=1.0))
         s = c
         s = torch.where(hl_s, torch.maximum(s, lzs + pl), s)
@@ -1455,7 +1489,16 @@ class IpmSolver:
                                               TRACE_FILE))
         return res
 
-    def _solve_impl(self, x0, y0, resume_from, checkpoint_path,
+    def _solve_impl(self, *args, **options):
+        """One solve under a span recorder of its own, whose totals the
+        result carries (``spans``, ``counts``)."""
+        with Recorder() as rec:
+            with span("ipm.solve"):
+                res = self._solve_loop(*args, **options)
+        res.spans, res.counts = rec.spans(), rec.counts
+        return res
+
+    def _solve_loop(self, x0, y0, resume_from, checkpoint_path,
                     checkpoint_every, zl0, zu0, **options):
         if options:
             self.set_options(**options)
@@ -1491,7 +1534,7 @@ class IpmSolver:
         if o["dual_init"] == "lsq" and resume_from is None:
             y_lsq = self._lsq_duals(st, consts)
             st = st._replace(y=y_lsq, best_y=y_lsq)
-        timers = {"build": np.nan, "step_total": 0.0, "first_chunk": np.nan}
+        timers = {"step_total": 0.0, "first_chunk": np.nan}
         status = "max_iter"
         verbose = o["print_level"] >= 5
         # over a mesh every rank runs this loop on the same replicated
@@ -1519,9 +1562,9 @@ class IpmSolver:
         else:
             mu_switch = o["mu_switch_f32"]
         f32_demoted = False
-        mu_host = float(st.mu)
+        mu_host = _read(st.mu, float)
         self.host_returns = []
-        code, st_iter = int(st.status), int(st.iter)
+        code, st_iter = _read(st.status, int), _read(st.iter, int)
         while it < o["max_iter"]:
             use32 = (self.kkt32 is not None and not f32_demoted
                      and mu_host > mu_switch)
@@ -1529,10 +1572,13 @@ class IpmSolver:
             # cap (a resumed state may already be at it); its one-step
             # verbose loop steps regardless
             if chunk == 1 or (code == RUNNING and st_iter < chunk_end):
-                t0 = time.time()
-                st = self._step(st, consts, self.kkt32 if use32 else None)
-                code, st_iter = int(st.status), int(st.iter)
-                dt_step = time.time() - t0
+                t0 = time.perf_counter()
+                with span("ipm.step"):
+                    st = self._step(st, consts,
+                                    self.kkt32 if use32 else None)
+                    code = _read(st.status, int)
+                    st_iter = _read(st.iter, int)
+                dt_step = time.perf_counter() - t0
                 timers["step_total"] += dt_step
                 if np.isnan(timers["first_chunk"]):
                     timers["first_chunk"] = dt_step
@@ -1540,10 +1586,10 @@ class IpmSolver:
             # the reference's device loop returns to the host when a step
             # leaves RUNNING or the chunk's iterations are done
             at_host = (code != RUNNING or it >= chunk_end
-                       or (use32 and float(st.mu) <= mu_switch))
+                       or (use32 and _read(st.mu, float) <= mu_switch))
             if at_host:
                 chunk_end = min(it + chunk, o["max_iter"])
-                mu_host = float(st.mu)
+                mu_host = _read(st.mu, float)
                 self.host_returns.append(it)
             if code == DEMOTE_F32:
                 # precision handover: the same state, f64 step set from here
@@ -1561,10 +1607,11 @@ class IpmSolver:
                     if verbose:
                         say(f"{it:4d}  -- feasibility restoration phase "
                             f"(entry {resto_entries}) --")
-                    t0 = time.time()
-                    st = self._restore(st, consts)
+                    t0 = time.perf_counter()
+                    with span("ipm.restore"):
+                        st = self._restore(st, consts)
                     code = RUNNING
-                    timers["step_total"] += time.time() - t0
+                    timers["step_total"] += time.perf_counter() - t0
                     continue
                 code = STALLED
                 st = st._replace(status=_i32(STALLED, dev))
@@ -1580,23 +1627,24 @@ class IpmSolver:
                 # degenerate-ray dual reset (Ipopt recalc_y role): replace
                 # multipliers riding a near-null-space ray with the
                 # minimal-norm stationarity fit at the current iterate
-                tol_h = float(consts["tol"])
+                tol_h = _read(consts["tol"], float)
                 fire = False
                 if o["recalc_y"]:
-                    fire = float(_amax0(torch.abs(st.y))) > o["recalc_y_cap"]
+                    fire = (_read(_amax0(torch.abs(st.y)), float)
+                            > o["recalc_y_cap"])
                 if not fire and o["recalc_y_stall"]:
                     # the terminal crawl creeps the objective upward while
                     # a productive feasible crawl still descends: the sign
                     # of the change separates them
-                    obj_now = float(st.log_obj)
+                    obj_now = _read(st.log_obj, float)
                     obj_stalled = (prev_chunk_obj is not None
                                    and obj_now >= prev_chunk_obj
                                    - 1e-5 * max(1.0, abs(obj_now)))
                     prev_chunk_obj = obj_now
                     fire = ((obj_stalled or not o["recalc_y_obj_gate"])
-                            and float(st.log_inf_pr) <= 1e2 * tol_h
-                            and float(st.log_inf_du) > 1e4 * tol_h
-                            and float(st.log_alpha) <= 0.25)
+                            and _read(st.log_inf_pr, float) <= 1e2 * tol_h
+                            and _read(st.log_inf_du, float) > 1e4 * tol_h
+                            and _read(st.log_alpha, float) <= 0.25)
                 if fire:
                     st = st._replace(y=self._lsq_duals(st, consts))
                     if verbose:
@@ -1617,7 +1665,7 @@ class IpmSolver:
                     o["max_wall_time"] < DEFAULTS["max_wall_time"]:
                 # a limit was set and the ranks' clocks differ: they stop
                 # together when any one is late
-                out_of_time = bool(mesh.psum_scalar(torch.as_tensor(
+                out_of_time = _read(mesh.psum_scalar(torch.as_tensor(
                     float(out_of_time), dtype=m.dtype, device=dev)) > 0)
             if out_of_time:
                 status = "max_time"
@@ -1627,11 +1675,11 @@ class IpmSolver:
         # best iterate passes the near-optimal visit gate, report it as
         # "acceptable" (Ipopt: SOLVED_TO_ACCEPTABLE_LEVEL at the limit)
         if status in ("max_iter", "max_time", "stalled"):
-            best_E = float(st.best_E)
+            best_E = _read(st.best_E, float)
             gate = (o["acceptable_visit_tol_factor"]
-                    * float(consts["tol"]))
+                    * _read(consts["tol"], float))
             if np.isfinite(best_E) and best_E <= gate \
-                    and best_E < float(st.log_E0):
+                    and best_E < _read(st.log_E0, float):
                 st = st._replace(x=st.best_x, s=st.best_s, y=st.best_y,
                                  zl=st.best_zl, zu=st.best_zu,
                                  log_inf_pr=st.best_inf_pr,
@@ -1647,7 +1695,7 @@ class IpmSolver:
         if status == "acceptable" and (o["recalc_y"] or o["recalc_y_stall"]):
             st_pol = st._replace(y=self._lsq_duals(st, consts))
             du_pol = self._dual_inf(st_pol, consts)
-            if float(du_pol) < float(st.log_inf_du):
+            if _read(du_pol, float) < _read(st.log_inf_du, float):
                 st = st_pol._replace(log_inf_du=du_pol)
                 if verbose:
                     say(f"{it:4d}  -- dual polish: du -> "
@@ -1661,15 +1709,15 @@ class IpmSolver:
 
         res = ExecutionStats(
             status=status,
-            objective=float(m.obj(st.x, consts["theta"])),
+            objective=_read(m.obj(st.x, consts["theta"]), float),
             solution=host(st.x),
             multipliers=host(st.y * sc / sf * m.sense),
             multipliers_L=host(st.zl[:n] / sf * m.sense),
             multipliers_U=host(st.zu[:n] / sf * m.sense),
             iter=it,
             solve_time=solve_time,
-            primal_feas=float(st.log_inf_pr),
-            dual_feas=float(st.log_inf_du),
+            primal_feas=_read(st.log_inf_pr, float),
+            dual_feas=_read(st.log_inf_du, float),
             timers=timers,
         )
         self.results = res

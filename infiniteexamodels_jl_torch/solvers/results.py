@@ -89,3 +89,7 @@ class ExecutionStats:
     # structured per-phase timers (SURVEY.md §5: replaces the reference's
     # solver-log text parsing with first-class metrics)
     timers: dict = field(default_factory=dict)
+    # the solve's span totals, {path: {"calls", "s", "self_s"}}, and its
+    # counters, {name: int} (utils/timers.py)
+    spans: dict = field(default_factory=dict)
+    counts: dict = field(default_factory=dict)

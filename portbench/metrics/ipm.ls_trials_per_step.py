@@ -1,0 +1,8 @@
+"""``ipm.ls_trials_per_step``: line-search trial points (calls of
+``ipm.trial``) per step of the window's last request."""
+from portbench.program_spans import calls_per_step, last_result
+
+
+def read(run):
+    res = last_result(run)
+    return None if res is None else calls_per_step(res, "ipm.trial")

@@ -112,6 +112,12 @@ PUBLIC_NAME_DIFFERENCES = {
     # jax.sharding.Mesh, which it does not export from parallel/
     "parallel": {"Mesh"},
 }
+# names of the JAX package that the port leaves out, with the reason
+PUBLIC_NAMES_LEFT_OUT = {
+    # per-phase timers that nothing read: the port's spans and counters
+    # (utils/timers.py) took their place
+    "utils": {"PhaseTimers"},
+}
 SUBPACKAGES = ("", "backend", "modeling", "models", "ops", "parallel",
                "solvers", "transcribe", "utils")
 
@@ -136,6 +142,7 @@ def test_public_names_match_the_jax_package(sub):
     ref = importlib.import_module("infiniteexamodels_jl_tpu" + suffix)
     port = importlib.import_module("infiniteexamodels_jl_torch" + suffix)
     extra = PUBLIC_NAME_DIFFERENCES.get(sub, set())
-    assert _public_names(ref) - _public_names(port) == set()
+    assert _public_names(ref) - _public_names(port) == \
+        PUBLIC_NAMES_LEFT_OUT.get(sub, set())
     assert _public_names(port) - _public_names(ref) <= extra
     from infiniteexamodels_jl_torch import MadIpmSolver  # noqa: F401
