@@ -10,9 +10,22 @@ contributes one ``torch.func.vmap`` of its template (or of its ``grad``,
 Every scatter-add (gradient, Hessian-vector product, COO J products) runs
 through a build-time gather + segment-sum plan (:mod:`.segsum`), so results
 are bit-reproducible on CUDA, where ``index_add_`` sums with atomics.
+
+On a CUDA model that holds all its rows (no mesh), each of the five
+spanned sweeps (``obj``, ``cons``, ``obj_and_grad``, ``cons_and_jac``,
+``kkt_vals``) runs as a CUDA graph (:class:`SweepGraph`): captured on its
+first call for each shape and dtype of its arguments, replayed after.  A
+sweep is some thousands of small kernels launched one at a time through
+``torch.func``'s interpreters, and every input a sweep depends on besides
+its arguments is fixed once the rows are placed (gather tables, segment-sum
+plans, the templates, which hold no host reads), so a replay launches the
+same kernels in the same order and returns the eager result bit for bit.
+A sharded model's sweeps all-gather over the mesh and stay eager, as does
+everything on the CPU.
 """
 from __future__ import annotations
 
+import gc
 import hashlib
 
 import numpy as np
@@ -20,9 +33,47 @@ import torch
 from torch.func import grad, grad_and_value, hessian, jvp, vmap
 
 from ..utils.device import resolve_device
-from ..utils.timers import spanned
+from ..utils.timers import count, spanned
 from .compile import CompiledFamily
 from .segsum import SegmentSum
+
+
+class SweepGraph:
+    """One sweep captured as a CUDA graph over static copies of its tensor
+    arguments.  A call copies its arguments into them, replays, and returns
+    clones of the graph's outputs, which the next replay overwrites (the
+    solver holds a step's Jacobian values while the SOC sweeps again)."""
+
+    def __init__(self, body, args, kwargs):
+        self.inputs = [a.detach().clone() for a in args]
+        with torch.cuda.device(self.inputs[0].device):
+            # one eager run on a side stream first, as ``torch.cuda.graph``
+            # asks: lazy initialization stays out of the capture
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                body(*self.inputs, **kwargs)
+            torch.cuda.current_stream().wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            # no garbage collection inside the capture: a dead cycle that
+            # holds another graph (an earlier model's) would destroy that
+            # graph there, a call the capture forbids, which invalidates it
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(self.graph):
+                    self.outputs = body(*self.inputs, **kwargs)
+            finally:
+                if collecting:
+                    gc.enable()
+
+    def __call__(self, args):
+        for buf, a in zip(self.inputs, args):
+            buf.copy_(a)
+        self.graph.replay()
+        out = self.outputs
+        return (out.clone() if torch.is_tensor(out)
+                else tuple(o.clone() for o in out))
 
 
 class SimdModel:
@@ -151,6 +202,9 @@ class SimdModel:
         order, and the degenerate stochastic programs amplify that into
         another iterate sequence.)"""
         self.mesh = mesh
+        # the graphs read the gather tables placed below: captured anew
+        self._graphs = {}
+        self._graphed = mesh is None and self.device.type == "cuda"
         nd, r = (1, 0) if mesh is None else (mesh.size, mesh.rank)
         self._rows = {}
         self._fam_dev = {}
@@ -310,9 +364,33 @@ class SimdModel:
             off += fam.n
         return total
 
+    def _sweep(self, body, *args, **kwargs):
+        """``body(*args, **kwargs)``, one of the five sweeps' eager bodies:
+        replayed from its graph where the model is graphed and every
+        argument is a tensor on the model's kind of device (the graph keyed
+        by the body, the keywords and the arguments' shapes and dtypes),
+        else run eagerly."""
+        if not (self._graphed and all(
+                torch.is_tensor(a) and a.device.type == self.device.type
+                for a in args)):
+            count("ad.eager_sweeps")
+            return body(*args, **kwargs)
+        key = (body.__name__, tuple(kwargs.items()),
+               tuple((a.shape, a.dtype) for a in args))
+        g = self._graphs.get(key)
+        if g is None:
+            g = self._graphs[key] = SweepGraph(body, args, kwargs)
+            count("ad.graph_captures")
+        else:
+            count("ad.graph_replays")
+        return g(args)
+
     # -- evaluations (user sense; solvers fold in self.sense) ------------
     @spanned("ad.obj")
     def obj(self, x, theta):
+        return self._sweep(self._eager_obj, x, theta)
+
+    def _eager_obj(self, x, theta):
         return self._obj_total(self._stream(
             "obj", [self._fam_vals(fam, x, theta) for fam in self.obj_fams]))
 
@@ -325,12 +403,18 @@ class SimdModel:
 
     @spanned("ad.cons")
     def cons(self, x, theta):
+        return self._sweep(self._eager_cons, x, theta)
+
+    def _eager_cons(self, x, theta):
         return self._stream("cons", [self._fam_vals(f, x, theta)
                                      for f in self.con_fams])
 
     # -- fused value+derivative sweeps (one vmapped pass per family) ------
     @spanned("ad.obj_and_grad")
     def obj_and_grad(self, x, theta):
+        return self._sweep(self._eager_obj_and_grad, x, theta)
+
+    def _eager_obj_and_grad(self, x, theta):
         vals, parts = [], []
         for fam in self.obj_fams:
             if fam.kx == 0:
@@ -347,6 +431,9 @@ class SimdModel:
 
     @spanned("ad.cons_and_jac")
     def cons_and_jac(self, x, theta):
+        return self._sweep(self._eager_cons_and_jac, x, theta)
+
+    def _eager_cons_and_jac(self, x, theta):
         vals, jparts = [], []
         for fam in self.con_fams:
             if fam.kx == 0:
@@ -431,7 +518,11 @@ class SimdModel:
         and the families' fixed values are cast once, and the templates
         follow their operands (their constants are Python floats, which
         never promote a tensor).  The low-precision step sets assemble
-        their KKT this way for an f32 factorization."""
+        their KKT this way for an f32 factorization (a graph of its own)."""
+        return self._sweep(self._eager_kkt_vals, x, theta, lam, sigma, d,
+                           dtype=dtype)
+
+    def _eager_kkt_vals(self, x, theta, lam, sigma, d, dtype=None):
         if dtype is not None:
             x, theta, lam, d = (a.to(dtype) for a in (x, theta, lam, d))
             sigma = torch.as_tensor(sigma, dtype=dtype, device=x.device)
