@@ -411,6 +411,15 @@ class BlockTridiagKKT:
 
     # ------------------------------------------------------------------
     def factor(self, K):
+        """Factor ``K = (D, L, B, C)``; returns ``(fac, ok)``.  Jacobi
+        equilibration, then the blocks: one K1 launch over all ``nb`` in
+        the block-diagonal branch, one a level in BCR.  With a border of
+        ``mB`` variables, its elimination besides: ``Z = T^{-1} B`` (``mB``
+        right-hand sides through the blocks' inverses), the Schur
+        complement ``C - B^T Z`` (one einsum reduced over the ``nb``
+        blocks) and its ``mB x mB`` Cholesky (6x6 for opf).  The border has
+        no span of its own: in the IPM its time falls under
+        ``kkt.factor``."""
         self.factorizations += 1
         D, L, B, C = K
         nb, bs, mB = self.nb, self.bs, self.mB
@@ -476,7 +485,10 @@ class BlockTridiagKKT:
 
     def solve(self, fac, rhs):
         """``K^{-1} rhs`` in ``rhs``'s dtype: scaled, cast to the factor's
-        dtype, solved there, cast back and unscaled."""
+        dtype, solved there, cast back and unscaled.  With a border, two
+        einsum reductions over the blocks (``Z^T r_T``, ``Z x_B``) and two
+        triangular solves with the ``mB x mB`` Schur factor besides; in the
+        IPM their time falls under ``kkt.solve``."""
         tfac, Z, Ls, sT, sB = fac
         nb, bs, mB = self.nb, self.bs, self.mB
         dt, fdt = rhs.dtype, Z.dtype

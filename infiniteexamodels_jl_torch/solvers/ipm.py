@@ -65,6 +65,10 @@ TRACE_FILE = "ipm_solve.pt.trace.json"   # solve(trace_dir=...) writes it
 # recalc triggers are evaluated at the iterations where it returns to the
 # host, so the two trajectories agree
 HOST_CHUNK = 32
+# counters every solve's result carries, at 0 where nothing happened: the
+# second-order corrections tried, and the rounds of the condensed solve's
+# iterative refinement (each a solve and a matvec, or in ir32 a PCG step)
+ZEROED_COUNTS = ("ipm.soc_trials", "kkt.refine_rounds")
 
 
 class IpmState(NamedTuple):
@@ -820,6 +824,7 @@ class IpmSolver:
                 best_x = torch.where(better, x, best_x)
                 best_rr = torch.where(better, rr, best_rr)
                 i += 1
+                count("kkt.refine_rounds")
             return best_x, best_rr
 
         def make_step(delta_w, delta_c):
@@ -888,6 +893,7 @@ class IpmSolver:
                                 (rr > refine_tol)
                                 & (rr < refine_contract * prev))):
                             break
+                        count("kkt.refine_rounds")
                         dxn = vadd(dx, ksolve(resid))
                         residn = vsub(rhs_v, kmv(dxn))
                         rrn = vnorm(residn) / rhs_norm
@@ -1026,6 +1032,7 @@ class IpmSolver:
             need_soc = ok_f & (~acc0) & (theta_t0 >= theta_c)
             use_soc = torch.zeros((), dtype=torch.bool, device=dev)
             if _read(need_soc):
+                count("ipm.soc_trials")
                 stt = st.s + alpha_max * ds
                 ct = self._ceval(st.x + alpha_max * dx, consts)
                 rp_soc = alpha_max * rp + (ct - stt)
@@ -1493,6 +1500,8 @@ class IpmSolver:
         """One solve under a span recorder of its own, whose totals the
         result carries (``spans``, ``counts``)."""
         with Recorder() as rec:
+            for name in ZEROED_COUNTS:
+                count(name, 0)
             with span("ipm.solve"):
                 res = self._solve_loop(*args, **options)
         res.spans, res.counts = rec.spans(), rec.counts
