@@ -39,10 +39,11 @@ from .segsum import SegmentSum
 
 
 class SweepGraph:
-    """One sweep captured as a CUDA graph over static copies of its tensor
-    arguments.  A call copies its arguments into them, replays, and returns
-    clones of the graph's outputs, which the next replay overwrites (the
-    solver holds a step's Jacobian values while the SOC sweeps again)."""
+    """One sweep (or one KKT solve, ``solvers/block_tridiag.py``) captured
+    as a CUDA graph over static copies of its tensor arguments.  A call
+    copies its arguments into them, replays, and returns clones of the
+    graph's outputs, which the next replay overwrites (the solver holds a
+    step's Jacobian values while the SOC sweeps again)."""
 
     def __init__(self, body, args, kwargs):
         self.inputs = [a.detach().clone() for a in args]

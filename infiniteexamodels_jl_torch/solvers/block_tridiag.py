@@ -24,13 +24,28 @@ Every eliminated block goes through K1 (:func:`.chol_linv.chol_linv`, the
 hand-written Hopper kernel): Cholesky plus the explicit inverse factor, so
 the solve sweeps are batched matmuls.  Assembly is a deterministic gather +
 segment-sum of the per-family COO value stream into the blocks.
+
+On a CUDA backend without a mesh, :meth:`BlockTridiagKKT.solve` is a CUDA
+graph (the AD sweeps' :class:`~..ops.model.SweepGraph`): a solve is some
+hundreds of small kernels (BCR's ~20 a level down and up), launched one at
+a time by the host, for about a millisecond of device work.  A graph reads
+the tensors it was captured on, so there :meth:`~BlockTridiagKKT.factor`
+writes each factorization into the same buffers (:class:`_Placement`, one
+per factor dtype) and a solve with an older factorization than the last
+raises.  The graph launches the eager solve's kernels in the same order,
+so it returns the eager result bit for bit.  The sharded subclasses, whose
+solves run collectives, and everything on the CPU stay eager.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
+from ..ops.model import SweepGraph
 from ..ops.segsum import SegmentSum
+from ..utils.timers import count
 from .chol_linv import chol_linv
 from .kkt import DenseKKT
 
@@ -51,12 +66,63 @@ def _lsolve(L, Linv, X):
     return torch.linalg.solve_triangular(L, X, upper=False)
 
 
-def _apply_inv(Linv, b):
+def _apply_inv(Linv, b, out=None):
     """D^{-1} b = L^{-T} (L^{-1} b) from the stored triangular inverse."""
-    return torch.matmul(Linv.transpose(-1, -2), torch.matmul(Linv, b))
+    return torch.matmul(Linv.transpose(-1, -2), torch.matmul(Linv, b),
+                        out=out)
 
 
-def _bcr_factor(D, E):
+class _Fresh:
+    """Where the eager path leaves a factorization: in new memory."""
+
+    @staticmethod
+    def out(name, shape, like):
+        return None
+
+    @staticmethod
+    def keep(name, t):
+        return t
+
+
+class _Placement:
+    """Where the graphed path leaves the factorizations of one factor
+    dtype: buffers allocated at the first and rewritten by each later one,
+    so the solve's graphs (``graphs``, one per right-hand side's shape and
+    dtype) read the newest.  ``generation`` counts the factorizations
+    begun in them."""
+
+    def __init__(self):
+        self.bufs = {}
+        self.graphs = {}
+        self.generation = 0
+
+    def out(self, name, shape, like):
+        """The buffer ``name``: for an op to write its result into."""
+        buf = self.bufs.get(name)
+        if buf is None:
+            buf = self.bufs[name] = like.new_empty(shape)
+        return buf
+
+    def keep(self, name, t):
+        """``t`` copied into the buffer ``name``, for a result whose op
+        cannot write in place; the first factorization's ``t`` becomes the
+        buffer, so it keeps the op's own layout (a column-major Cholesky
+        factor stays one, and the solve's kernels read it as eagerly)."""
+        buf = self.bufs.setdefault(name, t)
+        return buf if buf is t else buf.copy_(t)
+
+
+class _Factorization(tuple):
+    """``(tfac, Z, Ls, sT, sB)`` in a placement's buffers, as the
+    placement's ``generation``-th factorization left them."""
+
+    def __new__(cls, parts, placement):
+        fac = super().__new__(cls, parts)
+        fac.placement, fac.generation = placement, placement.generation
+        return fac
+
+
+def _bcr_factor(D, E, place=_Fresh):
     """Block-cyclic-reduction factorization of the SPD block-tridiagonal
     matrix with diagonal blocks ``D`` (nb, bs, bs) and sub-diagonal blocks
     ``E`` (nb-1, bs, bs) where ``E[j]`` couples row block j+1 to column
@@ -73,16 +139,19 @@ def _bcr_factor(D, E):
     Returns ``(levels, root, ok)``: per-level tuples
     ``(Linv, E_odd, E_even)`` plus the root block's ``Linv``.  Depth is
     ceil(log2(nb)); every level is batched, and each level plus the root
-    is one K1 launch."""
+    is one K1 launch.  ``place`` (:class:`_Fresh` or a
+    :class:`_Placement`) says where the stored factors go."""
     levels = []
     ok = torch.ones((), dtype=torch.bool, device=D.device)
     while D.shape[0] > 1:
         m = D.shape[0]
         m_odd, m_even = m // 2, (m + 1) // 2
         L, Linv, okl = _chol_linv(D[1::2])
+        Linv = place.keep(("Linv", len(levels)), Linv)
         ok = ok & okl
         zpad = torch.zeros((1,) + D.shape[1:], dtype=D.dtype, device=D.device)
-        Epad = torch.cat([E, zpad])                 # length m
+        Epad = torch.cat([E, zpad], out=place.out(
+            ("Epad", len(levels)), (m,) + D.shape[1:], D))   # length m
         E_odd = Epad[1::2]                          # (m_odd,) E[2k+1]
         E_even = Epad[0::2][:m_odd]                 # (m_odd,) E[2k]
         levels.append((Linv, E_odd, E_even))
@@ -103,7 +172,7 @@ def _bcr_factor(D, E):
             E = D.new_zeros((0,) + D.shape[1:])
         D = D_new
     _, root_linv, okr = _chol_linv(D)
-    return levels, root_linv, ok & okr
+    return levels, place.keep("root_linv", root_linv), ok & okr
 
 
 def _bcr_solve(levels, root_linv, b):
@@ -172,6 +241,11 @@ class BlockTridiagKKT:
         # here is one process group, with one axis
         self.mesh = mesh if mesh is not None else getattr(model, "mesh",
                                                           None)
+        # the graphed path (see the module's note): its placements by
+        # factor dtype, which a shallow copy of this object (the IPM's f32
+        # view) shares, each view keeping to its own dtype's
+        self._graphed = self.mesh is None and self.device.type == "cuda"
+        self._placements = {}
         n = model.nvar
         rows = model.hess_rows_np
         cols = model.hess_cols_np
@@ -419,7 +493,12 @@ class BlockTridiagKKT:
         complement ``C - B^T Z`` (one einsum reduced over the ``nb``
         blocks) and its ``mB x mB`` Cholesky (6x6 for opf).  The border has
         no span of its own: in the IPM its time falls under
-        ``kkt.factor``."""
+        ``kkt.factor``.
+
+        On the graphed path the factorization is written into the buffers
+        of its factor dtype's :class:`_Placement` (the level's ``Epad`` in
+        place, the rest copied there), which makes every earlier
+        factorization of that dtype stale."""
         self.factorizations += 1
         D, L, B, C = K
         nb, bs, mB = self.nb, self.bs, self.mB
@@ -445,17 +524,23 @@ class BlockTridiagKKT:
         fdt = self.factor_dtype
         if fdt is not None and fdt != D.dtype:
             D, L, B, C = D.to(fdt), L.to(fdt), B.to(fdt), C.to(fdt)
+        place = _Fresh
+        if self._graphed:
+            place = self._placements.setdefault(D.dtype, _Placement())
+            place.generation += 1
 
         if self.block_diag:
             # batched per-block Cholesky + explicit triangular inverses
             _, Linv, ok = _chol_linv(D)
+            Linv = place.keep("Linv", Linv)
             tfac = (Linv,)
-            Z = _apply_inv(Linv, B) if mB else D.new_zeros((nb, bs, 0))
+            Z = _apply_inv(Linv, B, out=place.out("Z", B.shape, B)) if mB \
+                else D.new_zeros((nb, bs, 0))
         else:
-            levels, root_inv, ok = _bcr_factor(D, L[:nb - 1])
+            levels, root_inv, ok = _bcr_factor(D, L[:nb - 1], place)
             tfac = (levels, root_inv)
-            Z = _bcr_solve(levels, root_inv, B) if mB else \
-                D.new_zeros((nb, bs, 0))
+            Z = place.keep("Z", _bcr_solve(levels, root_inv, B)) if mB \
+                else D.new_zeros((nb, bs, 0))
 
         if mB:
             # S = C - B^T T^{-1} B; border solves reduce to matmuls with Z
@@ -463,7 +548,9 @@ class BlockTridiagKKT:
             ok = ok & torch.isfinite(Ls).all()
         else:
             Ls = D.new_zeros((0, 0))
-        return (tfac, Z, Ls, sT, sB), ok
+        fac = (tfac, Z, place.keep("Ls", Ls), place.keep("sT", sT),
+               place.keep("sB", sB))
+        return (fac if place is _Fresh else _Factorization(fac, place)), ok
 
     @staticmethod
     def _schur_cholesky(S):
@@ -488,7 +575,35 @@ class BlockTridiagKKT:
         dtype, solved there, cast back and unscaled.  With a border, two
         einsum reductions over the blocks (``Z^T r_T``, ``Z x_B``) and two
         triangular solves with the ``mB x mB`` Schur factor besides; in the
-        IPM their time falls under ``kkt.solve``."""
+        IPM their time falls under ``kkt.solve``.
+
+        A factorization of the graphed path is solved by its placement's
+        graph for ``rhs``'s shape and dtype, captured at the first such
+        solve: ``rhs`` is copied in, the graph replayed and its output
+        cloned, so a kept result survives the next replay.  On the card the
+        call then returns once the replay is launched, and its device time
+        shows at the caller's next wait."""
+        placement = getattr(fac, "placement", None)
+        if placement is None:
+            count("kkt.eager_solves")
+            return self._eager_solve(fac, rhs)
+        if fac.generation != placement.generation:
+            raise RuntimeError(
+                f"stale factorization: generation {fac.generation} solved "
+                f"after factorization {placement.generation} of its dtype "
+                f"overwrote its buffers")
+        key = (rhs.shape, rhs.dtype)
+        graph = placement.graphs.get(key)
+        if graph is None:
+            graph = placement.graphs[key] = SweepGraph(
+                functools.partial(self._eager_solve, fac), (rhs,), {})
+            count("kkt.solve_graph_captures")
+        else:
+            count("kkt.solve_graph_replays")
+        return graph((rhs,))
+
+    def _eager_solve(self, fac, rhs):
+        """:meth:`solve`'s kernels, launched one at a time."""
         tfac, Z, Ls, sT, sB = fac
         nb, bs, mB = self.nb, self.bs, self.mB
         dt, fdt = rhs.dtype, Z.dtype

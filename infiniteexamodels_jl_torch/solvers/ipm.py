@@ -1413,7 +1413,6 @@ class IpmSolver:
             return (time.perf_counter() - t0) / reps
 
         K = self.kkt.assemble(x, theta, lam, sig, d, de)
-        fac, _ = self.kkt.factor(K)
         prof = {
             "eval_obj_grad": timed(lambda: m.obj_and_grad(x, theta)),
             "eval_cons_jac": timed(lambda: m.cons_and_jac(x, theta)),
@@ -1421,19 +1420,26 @@ class IpmSolver:
             "assemble": timed(
                 lambda: self.kkt.assemble(x, theta, lam, sig, d, de)),
             "factor": timed(lambda: self.kkt.factor(K)),
+        }
+        # the solves take the last factorization: a graphed backend's
+        # earlier ones are overwritten by it
+        fac, _ = self.kkt.factor(K)
+        prof.update({
             "solve": timed(lambda: self.kkt.solve(fac, rhs)),
             "matvec": timed(lambda: self.kkt.matvec(K, rhs)),
             "full_step": timed(lambda: self._step(state, consts)),
-        }
+        })
         k32 = self.kkt32
         if k32 is not None:
             # the f32 step set's phases: its Hessian sweep, and the f32
             # factorization and solve of the same (f64-assembled) K
-            fac32, _ = k32.factor(K)
             prof.update({
                 "kkt_vals_f32": timed(lambda: m.kkt_vals(
                     x, theta, lam, sig, d, dtype=k32.assemble_dtype)),
                 "factor_f32": timed(lambda: k32.factor(K)),
+            })
+            fac32, _ = k32.factor(K)
+            prof.update({
                 "solve_f32": timed(lambda: k32.solve(fac32, rhs)),
                 "full_step_f32": timed(
                     lambda: self._step(state, consts, k32)),
