@@ -83,7 +83,6 @@ class ShardedBandKKT(_AlignedKKT, BlockTridiagKKT):
         except _NotBandShardable:
             return
         self.aligned = True
-        self.tlayout = True
         self._release_whole_system_tables()
 
     # ------------------------------------------------------------------
@@ -226,8 +225,8 @@ class ShardedBandKKT(_AlignedKKT, BlockTridiagKKT):
             E_odd = torch.cat([E[2::2], E_next0[None]])
             E_even = E[1::2]
             levels.append((Linv, E_odd, E_even))
-            W1 = _lsolve(L, Linv, E_odd.transpose(-1, -2))
-            W2 = _lsolve(L, Linv, E_even)
+            W1 = _lsolve(L, E_odd.transpose(-1, -2))
+            W2 = _lsolve(L, E_even)
             D_new = D[0::2].clone()
             # right-survivor updates -W1^T W1 and the new couplings between
             # survivors -W1^T W2; the last of each crosses the segment edge
@@ -325,11 +324,6 @@ class ShardedBandKKT(_AlignedKKT, BlockTridiagKKT):
         x1, xB = self._border_solve(Z, Ls, sB, u, rT, rB, dt)
         return (x1.to(dt) * sT).reshape(-1), xB
 
-    def solve(self, fac, rhs):
-        if not self.aligned:
-            return super().solve(fac, rhs)
-        return self.tl_scatter(self.solve_tl(fac, self.tl_gather(rhs)))
-
     # ------------------------------------------------------------------
     def matvec_tl(self, K, v):
         """K @ v in T-layout: two O(bs) halo shifts + one O(mB) psum."""
@@ -349,8 +343,3 @@ class ShardedBandKKT(_AlignedKKT, BlockTridiagKKT):
         oT[nb_loc - 1] += self.mesh.ppermute_left(up[0])
         oT, oB = self._border_matvec(B, C, vT, vB, oT, vT2.dtype)
         return oT.reshape(-1).to(vT2.dtype), oB
-
-    def matvec(self, K, v):
-        if not self.aligned:
-            return super().matvec(K, v)
-        return self.tl_scatter(self.matvec_tl(K, self.tl_gather(v)))

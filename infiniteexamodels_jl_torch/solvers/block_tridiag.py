@@ -26,7 +26,7 @@ the solve sweeps are batched matmuls.  Assembly is a deterministic gather +
 segment-sum of the per-family COO value stream into the blocks.
 
 On a CUDA backend without a mesh, :meth:`BlockTridiagKKT.solve` is a CUDA
-graph (the AD sweeps' :class:`~..ops.model.SweepGraph`): a solve is some
+graph (``utils/cuda_graphs.py``, as the AD sweeps are): a solve is some
 hundreds of small kernels (BCR's ~20 a level down and up), launched one at
 a time by the host, for about a millisecond of device work.  A graph reads
 the tensors it was captured on, so there :meth:`~BlockTridiagKKT.factor`
@@ -38,16 +38,20 @@ solves run collectives, and everything on the CPU stay eager.
 """
 from __future__ import annotations
 
+import copy
 import functools
 
 import numpy as np
 import torch
 
-from ..ops.model import SweepGraph
 from ..ops.segsum import SegmentSum
-from ..utils.timers import count
+from ..utils.cuda_graphs import GraphCache
 from .chol_linv import chol_linv
-from .kkt import DenseKKT
+from .kkt import CondensedKKT, DenseKKT
+
+# the solve's graph counters: captures, replays and eager solves
+KKT_COUNTERS = ("kkt.solve_graph_captures", "kkt.solve_graph_replays",
+                "kkt.eager_solves")
 
 
 # ----------------------------------------------------------------------
@@ -60,7 +64,7 @@ def _chol_linv(D):
     return chol_linv(D.contiguous())
 
 
-def _lsolve(L, Linv, X):
+def _lsolve(L, X):
     """W = L^{-1} X for the Gram-form factor updates: the backward-stable
     batched triangular solve."""
     return torch.linalg.solve_triangular(L, X, upper=False)
@@ -72,57 +76,55 @@ def _apply_inv(Linv, b, out=None):
                         out=out)
 
 
-class _Fresh:
-    """Where the eager path leaves a factorization: in new memory."""
-
-    @staticmethod
-    def out(name, shape, like):
-        return None
-
-    @staticmethod
-    def keep(name, t):
-        return t
-
-
 class _Placement:
     """Where the graphed path leaves the factorizations of one factor
     dtype: buffers allocated at the first and rewritten by each later one,
-    so the solve's graphs (``graphs``, one per right-hand side's shape and
-    dtype) read the newest.  ``generation`` counts the factorizations
-    begun in them."""
+    so the solve's graphs read the newest.  ``generation`` counts the
+    factorizations begun in them."""
 
     def __init__(self):
         self.bufs = {}
-        self.graphs = {}
         self.generation = 0
 
-    def out(self, name, shape, like):
-        """The buffer ``name``: for an op to write its result into."""
-        buf = self.bufs.get(name)
-        if buf is None:
-            buf = self.bufs[name] = like.new_empty(shape)
-        return buf
 
-    def keep(self, name, t):
-        """``t`` copied into the buffer ``name``, for a result whose op
-        cannot write in place; the first factorization's ``t`` becomes the
-        buffer, so it keeps the op's own layout (a column-major Cholesky
-        factor stays one, and the solve's kernels read it as eagerly)."""
-        buf = self.bufs.setdefault(name, t)
-        return buf if buf is t else buf.copy_(t)
+def _out(place, name, shape, like):
+    """The buffer ``name`` of ``place``, for an op to write its result
+    into; None (new memory) on the eager path, where ``place`` is None."""
+    if place is None:
+        return None
+    buf = place.bufs.get(name)
+    if buf is None:
+        buf = place.bufs[name] = like.new_empty(shape)
+    return buf
+
+
+def _keep(place, name, t):
+    """``t`` copied into the buffer ``name`` of ``place``, for a result
+    whose op cannot write in place; the first factorization's ``t`` becomes
+    the buffer, so it keeps the op's own layout (a column-major Cholesky
+    factor stays one, and the solve's kernels read it as eagerly).  ``t``
+    itself on the eager path."""
+    if place is None:
+        return t
+    buf = place.bufs.setdefault(name, t)
+    return buf if buf is t else buf.copy_(t)
 
 
 class _Factorization(tuple):
-    """``(tfac, Z, Ls, sT, sB)`` in a placement's buffers, as the
-    placement's ``generation``-th factorization left them."""
+    """``(tfac, Z, Ls, sT, sB)``.  On the graphed path it lies in the
+    buffers of ``placement``, as the placement's ``generation``-th
+    factorization left them; on the eager path in memory of its own, with
+    ``placement`` None."""
 
-    def __new__(cls, parts, placement):
+    def __new__(cls, parts, placement=None):
         fac = super().__new__(cls, parts)
-        fac.placement, fac.generation = placement, placement.generation
+        fac.placement = placement
+        fac.generation = (None if placement is None
+                          else placement.generation)
         return fac
 
 
-def _bcr_factor(D, E, place=_Fresh):
+def _bcr_factor(D, E, place=None):
     """Block-cyclic-reduction factorization of the SPD block-tridiagonal
     matrix with diagonal blocks ``D`` (nb, bs, bs) and sub-diagonal blocks
     ``E`` (nb-1, bs, bs) where ``E[j]`` couples row block j+1 to column
@@ -139,25 +141,25 @@ def _bcr_factor(D, E, place=_Fresh):
     Returns ``(levels, root, ok)``: per-level tuples
     ``(Linv, E_odd, E_even)`` plus the root block's ``Linv``.  Depth is
     ceil(log2(nb)); every level is batched, and each level plus the root
-    is one K1 launch.  ``place`` (:class:`_Fresh` or a
-    :class:`_Placement`) says where the stored factors go."""
+    is one K1 launch.  ``place`` (a :class:`_Placement`, or None for new
+    memory) says where the stored factors go."""
     levels = []
     ok = torch.ones((), dtype=torch.bool, device=D.device)
     while D.shape[0] > 1:
         m = D.shape[0]
         m_odd, m_even = m // 2, (m + 1) // 2
         L, Linv, okl = _chol_linv(D[1::2])
-        Linv = place.keep(("Linv", len(levels)), Linv)
+        Linv = _keep(place, ("Linv", len(levels)), Linv)
         ok = ok & okl
         zpad = torch.zeros((1,) + D.shape[1:], dtype=D.dtype, device=D.device)
-        Epad = torch.cat([E, zpad], out=place.out(
-            ("Epad", len(levels)), (m,) + D.shape[1:], D))   # length m
+        Epad = torch.cat([E, zpad], out=_out(
+            place, ("Epad", len(levels)), (m,) + D.shape[1:], D))  # length m
         E_odd = Epad[1::2]                          # (m_odd,) E[2k+1]
         E_even = Epad[0::2][:m_odd]                 # (m_odd,) E[2k]
         levels.append((Linv, E_odd, E_even))
         # Gram factors: W1 = L^{-1} E_odd^T, W2 = L^{-1} E_even
-        W1 = _lsolve(L, Linv, E_odd.transpose(-1, -2))
-        W2 = _lsolve(L, Linv, E_even)
+        W1 = _lsolve(L, E_odd.transpose(-1, -2))
+        W2 = _lsolve(L, E_even)
         D_new = D[0::2].clone()
         # left term  E[2k-1] D^{-1} E[2k-1]^T = W1^T W1 -> index k (k>=1)
         Lc = torch.matmul(W1.transpose(-1, -2), W1)
@@ -172,7 +174,7 @@ def _bcr_factor(D, E, place=_Fresh):
             E = D.new_zeros((0,) + D.shape[1:])
         D = D_new
     _, root_linv, okr = _chol_linv(D)
-    return levels, place.keep("root_linv", root_linv), ok & okr
+    return levels, _keep(place, "root_linv", root_linv), ok & okr
 
 
 def _bcr_solve(levels, root_linv, b):
@@ -212,7 +214,7 @@ def _round_up(x, m):
     return ((x + m - 1) // m) * m
 
 
-class BlockTridiagKKT:
+class BlockTridiagKKT(CondensedKKT):
     """Structured condensed-KKT backend.  Build-time analysis happens once;
     per-iteration work is gather + segment-sum assembly + block
     factorization.
@@ -221,9 +223,9 @@ class BlockTridiagKKT:
     are equilibrated in the assembly's dtype, then cast, so BCR, the K1
     launches, the Gram-form triangular solves and the border Schur factor
     all run in f32, and :meth:`solve` hands back the right-hand side's
-    dtype.  ``assemble_dtype`` (a class attribute an instance may set)
-    lowers the Hessian sweep and the block assembly as well; unset, K stays
-    in the model's dtype."""
+    dtype.  :meth:`low_precision_view` also lowers the Hessian sweep and the
+    block assembly (``assemble_dtype``); elsewhere K stays in the model's
+    dtype."""
 
     assemble_dtype = None
     factorizations = 0      # calls of :meth:`factor` on this instance
@@ -241,10 +243,10 @@ class BlockTridiagKKT:
         # here is one process group, with one axis
         self.mesh = mesh if mesh is not None else getattr(model, "mesh",
                                                           None)
-        # the graphed path (see the module's note): its placements by
-        # factor dtype, which a shallow copy of this object (the IPM's f32
-        # view) shares, each view keeping to its own dtype's
-        self._graphed = self.mesh is None and self.device.type == "cuda"
+        # the graphed path (see the module's note): the solve's graphs and
+        # the placements by factor dtype, both shared with the f32 view
+        # (:meth:`low_precision_view`), each view keeping to its own dtype's
+        self._graphs = GraphCache(self.device, self.mesh, *KKT_COUNTERS)
         self._placements = {}
         n = model.nvar
         rows = model.hess_rows_np
@@ -424,6 +426,14 @@ class BlockTridiagKKT:
             np.einsum("bi,ij->bij", pad, np.eye(bs)), dtype=model.dtype,
             device=self.device)
 
+    def low_precision_view(self):
+        """This backend assembling and factoring in f32: a shallow copy, so
+        it shares the structure analysis, the device tables, the placements
+        and the solve's graphs."""
+        view = copy.copy(self)
+        view.factor_dtype = view.assemble_dtype = torch.float32
+        return view
+
     # ------------------------------------------------------------------
     def assemble(self, x, theta, lam, sigma, d, diag_extra):
         m = self.model
@@ -524,22 +534,22 @@ class BlockTridiagKKT:
         fdt = self.factor_dtype
         if fdt is not None and fdt != D.dtype:
             D, L, B, C = D.to(fdt), L.to(fdt), B.to(fdt), C.to(fdt)
-        place = _Fresh
-        if self._graphed:
+        place = None
+        if self._graphs.on:
             place = self._placements.setdefault(D.dtype, _Placement())
             place.generation += 1
 
         if self.block_diag:
             # batched per-block Cholesky + explicit triangular inverses
             _, Linv, ok = _chol_linv(D)
-            Linv = place.keep("Linv", Linv)
+            Linv = _keep(place, "Linv", Linv)
             tfac = (Linv,)
-            Z = _apply_inv(Linv, B, out=place.out("Z", B.shape, B)) if mB \
+            Z = _apply_inv(Linv, B, out=_out(place, "Z", B.shape, B)) if mB \
                 else D.new_zeros((nb, bs, 0))
         else:
             levels, root_inv, ok = _bcr_factor(D, L[:nb - 1], place)
             tfac = (levels, root_inv)
-            Z = place.keep("Z", _bcr_solve(levels, root_inv, B)) if mB \
+            Z = _keep(place, "Z", _bcr_solve(levels, root_inv, B)) if mB \
                 else D.new_zeros((nb, bs, 0))
 
         if mB:
@@ -548,9 +558,9 @@ class BlockTridiagKKT:
             ok = ok & torch.isfinite(Ls).all()
         else:
             Ls = D.new_zeros((0, 0))
-        fac = (tfac, Z, place.keep("Ls", Ls), place.keep("sT", sT),
-               place.keep("sB", sB))
-        return (fac if place is _Fresh else _Factorization(fac, place)), ok
+        fac = (tfac, Z, _keep(place, "Ls", Ls), _keep(place, "sT", sT),
+               _keep(place, "sB", sB))
+        return _Factorization(fac, place), ok
 
     @staticmethod
     def _schur_cholesky(S):
@@ -577,30 +587,20 @@ class BlockTridiagKKT:
         triangular solves with the ``mB x mB`` Schur factor besides; in the
         IPM their time falls under ``kkt.solve``.
 
-        A factorization of the graphed path is solved by its placement's
-        graph for ``rhs``'s shape and dtype, captured at the first such
-        solve: ``rhs`` is copied in, the graph replayed and its output
+        A factorization of the graphed path is solved by the graph of its
+        placement and of ``rhs``'s shape and dtype, captured at the first
+        such solve: ``rhs`` is copied in, the graph replayed and its output
         cloned, so a kept result survives the next replay.  On the card the
         call then returns once the replay is launched, and its device time
         shows at the caller's next wait."""
-        placement = getattr(fac, "placement", None)
-        if placement is None:
-            count("kkt.eager_solves")
-            return self._eager_solve(fac, rhs)
-        if fac.generation != placement.generation:
+        place = fac.placement
+        if place is not None and fac.generation != place.generation:
             raise RuntimeError(
                 f"stale factorization: generation {fac.generation} solved "
-                f"after factorization {placement.generation} of its dtype "
+                f"after factorization {place.generation} of its dtype "
                 f"overwrote its buffers")
-        key = (rhs.shape, rhs.dtype)
-        graph = placement.graphs.get(key)
-        if graph is None:
-            graph = placement.graphs[key] = SweepGraph(
-                functools.partial(self._eager_solve, fac), (rhs,), {})
-            count("kkt.solve_graph_captures")
-        else:
-            count("kkt.solve_graph_replays")
-        return graph((rhs,))
+        return self._graphs(place, functools.partial(self._eager_solve, fac),
+                            rhs)
 
     def _eager_solve(self, fac, rhs):
         """:meth:`solve`'s kernels, launched one at a time."""
@@ -657,7 +657,7 @@ def make_structured_kkt(model, fallback=True, **kwargs):
     if kkt is not None and kkt.usable:
         return kkt
     if fallback:
-        # has no factor_dtype: the low-precision step sets run in f64 here
+        # no low-precision view: the low-precision step sets run in f64 here
         return DenseKKT(model)
     raise NotImplementedError(
         "no usable block structure and fallback disabled")

@@ -18,6 +18,7 @@ import torch
 
 from ..ops.segsum import SegmentSum
 from ..utils import host_build
+from .kkt import CondensedKKT
 
 
 def load_library():
@@ -138,16 +139,15 @@ class SparseLDL:
         return out
 
 
-class CppLdlKKT:
+class CppLdlKKT(CondensedKKT):
     """Condensed-KKT backend on the host LDL.
 
     ``factor`` factors on the host and reports ``ok`` false when a pivot is
     nonpositive (wrong inertia for the SPD condensed system); ``solve``
     then returns NaN, as the reference's does, so the IPM's regularization
     ladder retries exactly as after a failed Cholesky.  The solve is exact
-    (``exact_solve``): the IPM skips iterative refinement on it."""
-
-    exact_solve = True
+    (:meth:`refinement` is None): the IPM skips iterative refinement on
+    it."""
 
     def __init__(self, model):
         self.model = model
@@ -187,3 +187,6 @@ class CppLdlKKT:
     def matvec(self, K, v):
         vals, diag = K
         return self._rows_plan(vals * v[self._cols]) + diag * v
+
+    def refinement(self, fac, K):
+        return None

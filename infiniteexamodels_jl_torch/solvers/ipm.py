@@ -28,7 +28,6 @@ checkpoints) are taken at the same iterations here.
 """
 from __future__ import annotations
 
-import copy
 import os
 import time
 from typing import NamedTuple
@@ -318,17 +317,14 @@ class IpmSolver:
             self.kkt32 = self._low_precision_view()
 
     def _low_precision_view(self):
-        """The low-precision step sets' second view of the structured KKT
-        (sharing its structure analysis) that assembles and factors in f32,
-        or None (f64 step set, or a KKT without ``factor_dtype``: the dense
-        one and the host LDL, where every step set runs in f64, as in the
-        reference).  The f64 view stays for the handover."""
-        if (self.opts["factor_dtype"] not in ("mixed", "float32", "ir32")
-                or not hasattr(self.kkt, "factor_dtype")):
+        """The low-precision step sets' view of the KKT, which assembles
+        and factors in f32, or None (the f64 step set, or a backend without
+        one, such as the dense one and the host LDL, where every step set
+        runs in f64, as in the reference).  The f64 view stays for the
+        handover."""
+        if self.opts["factor_dtype"] not in ("mixed", "float32", "ir32"):
             return None
-        kkt32 = copy.copy(self.kkt)
-        kkt32.factor_dtype = kkt32.assemble_dtype = torch.float32
-        return kkt32
+        return self.kkt.low_precision_view()
 
     def reset(self, model=None):
         """Prepare for a re-solve; model shape must be unchanged."""
@@ -778,7 +774,6 @@ class IpmSolver:
         # (the reference's f64 step set also has a branch for f32
         # refinement residuals on the TPU, where f64 is emulated; it is
         # TPU-only and not ported)
-        exact = getattr(kkt, "exact_solve", False)
         tiny = torch.finfo(dt).tiny
 
         def refine_pcg(fac, rhs, dx, rhs_norm, D, diag_extra):
@@ -843,70 +838,56 @@ class IpmSolver:
 
             rhs2 = pulled(rp + inv_ss * rs)
             rhs = -(rx + m.jtprod(jvals, D * rhs2))
-            # on the aligned sharded backends the solve and the whole
-            # refinement loop run in T-layout (each rank's own block slots
-            # plus the replicated border), with no O(n) collective per
-            # round; the one all-gather per step direction is the final
-            # tl_scatter.  ir32 refines against the model's operator, which
-            # needs the replicated vector every round, so it stays there
-            use_tl = getattr(kkt, "tlayout", False) and not ir_ref \
-                and not exact
             with span("kkt.solve"):
-                if exact:
+                # where the backend refines: on the aligned sharded
+                # backends the T-layout (each rank's own block slots plus
+                # the replicated border), where a round takes no O(n)
+                # collective and bring_out the step's one all-gather
+                space = kkt.refinement(fac, K)
+                if space is None:
                     # an exact backend (the host LDL) needs no refinement
                     dx = kkt.solve(fac, rhs)
                     rr_final = zero
                     ref_ok = torch.ones((), dtype=torch.bool, device=dev)
                 elif ir_ref:
+                    # ir32 refines against the model's operator, which
+                    # needs the replicated vector every round
                     dx, rr_final = refine_pcg(
                         fac, rhs, kkt.solve(fac, rhs),
                         torch.linalg.norm(rhs) + tiny, D, diag_extra)
                     ref_ok = rr_final <= refine_accept
                 else:
                     # residual-driven iterative refinement of the CONDENSED
-                    # solve, over either layout: exits early when the relative
-                    # residual is small or stops contracting; a final residual
-                    # above refine_accept marks the step failed so the
+                    # solve: exits early when the relative residual is
+                    # small or stops contracting; a final residual above
+                    # refine_accept marks the step failed so the
                     # regularization ladder escalates (or the f32 step set
                     # demotes)
-                    if use_tl:
-                        vnorm, vsub, vadd, vsel = (kkt.tl_norm, kkt.tl_sub,
-                                                   kkt.tl_add, kkt.tl_where)
-                        ksolve = lambda r: kkt.solve_tl(fac, r)   # noqa: E731
-                        kmv = lambda w: kkt.matvec_tl(K, w)       # noqa: E731
-                        rhs_v = kkt.tl_gather(rhs)
-                    else:
-                        vnorm, vsub, vadd = (torch.linalg.norm, torch.sub,
-                                             torch.add)
-                        vsel = torch.where
-                        ksolve = lambda r: kkt.solve(fac, r)      # noqa: E731
-                        kmv = lambda w: kkt.matvec(K, w)          # noqa: E731
-                        rhs_v = rhs
+                    rhs_v = space.bring_in(rhs)
                     rhs_norm = torch.linalg.norm(rhs) + tiny
-                    dx = ksolve(rhs_v)
-                    resid = vsub(rhs_v, kmv(dx))
+                    dx = space.solve(rhs_v)
+                    resid = space.sub(rhs_v, space.matvec(dx))
                     prev = torch.full((), inf, dtype=dt, device=dev)
                     i = 0
                     while True:
-                        rr = vnorm(resid) / rhs_norm
+                        rr = space.norm(resid) / rhs_norm
                         if not (i < refine_max and _read(
                                 (rr > refine_tol)
                                 & (rr < refine_contract * prev))):
                             break
                         count("kkt.refine_rounds")
-                        dxn = vadd(dx, ksolve(resid))
-                        residn = vsub(rhs_v, kmv(dxn))
-                        rrn = vnorm(residn) / rhs_norm
+                        dxn = space.add(dx, space.solve(resid))
+                        residn = space.sub(rhs_v, space.matvec(dxn))
+                        rrn = space.norm(residn) / rhs_norm
                         # keep the better iterate if refinement diverges
                         worse = rrn > rr
-                        dx = vsel(worse, dx, dxn)
-                        resid = vsel(worse, resid, residn)
+                        dx = space.where(worse, dx, dxn)
+                        resid = space.where(worse, resid, residn)
                         prev = rr
                         i += 1
-                    rr_final = vnorm(resid) / rhs_norm
+                    rr_final = space.norm(resid) / rhs_norm
                     ref_ok = rr_final <= refine_accept
-                    if use_tl:
-                        dx = kkt.tl_scatter(dx)
+                    dx = space.bring_out(dx)
             dy = D * (m.jprod(jvals, dx) + rhs2)
             ds = inv_ss * (dy - rs)
             ok = ok & torch.isfinite(dx).all() & \
@@ -1435,7 +1416,7 @@ class IpmSolver:
             # factorization and solve of the same (f64-assembled) K
             prof.update({
                 "kkt_vals_f32": timed(lambda: m.kkt_vals(
-                    x, theta, lam, sig, d, dtype=k32.assemble_dtype)),
+                    x, theta, lam, sig, d, dtype=torch.float32)),
                 "factor_f32": timed(lambda: k32.factor(K)),
             })
             fac32, _ = k32.factor(K)

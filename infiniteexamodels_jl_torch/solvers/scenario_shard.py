@@ -34,65 +34,48 @@ from ..ops.segsum import SegmentSum
 from .block_tridiag import BlockTridiagKKT, _apply_inv, _chol_linv
 
 
-class TLayoutOps:
-    """T-layout vectors, shared by the aligned sharded backends.
+class TLayoutSpace:
+    """The aligned backends' refinement space: T-layout vectors, the pairs
+    ``(xT, xB)`` of this rank's ``nb_loc*bs`` block slots (padding slots
+    identically zero) and the replicated border part ``(mB,)``.  Its solve
+    and product (``solve_tl``, ``matvec_tl``) take O(border) and O(halo)
+    collectives only, so the IPM's iterative refinement moves nothing O(n)
+    a round; the one O(n) collective a step direction is
+    :meth:`bring_out`'s all-gather handing the finished step back to the
+    replicated iterate."""
 
-    A T-layout vector is the pair ``(xT, xB)``: ``xT`` this rank's
-    ``nb_loc*bs`` block slots (padding slots identically zero) and ``xB``
-    the replicated border part ``(mB,)``.  ``solve_tl``/``matvec_tl``
-    work in this layout with O(border) and O(halo) collectives only, so
-    the IPM's iterative refinement moves nothing O(n) per round; the one
-    O(n) collective per step direction is :meth:`tl_scatter`'s all-gather
-    handing the finished step back to the replicated iterate."""
+    def __init__(self, kkt, fac, K):
+        self.kkt, self.fac, self.K = kkt, fac, K
 
-    tlayout = False     # set True by the aligned builders
+    def bring_in(self, v):
+        return self.kkt.tl_gather(v)
 
-    def _build_tlayout(self, rank):
-        """This rank's slot -> variable tables; ``_dev_of_t`` is the rank
-        owning each T variable (in ``t_ids`` order)."""
-        t_ids = self.t_ids_np
-        t_slots = self._slot_np[t_ids]
-        sel = np.nonzero(self._dev_of_t == rank)[0]
-        as_t = lambda a: torch.as_tensor(a, device=self.device)  # noqa: E731
-        self._tl_loc = as_t(t_slots[sel] - rank * self.nb_loc * self.bs)
-        self._tl_ids = as_t(t_ids[sel])
-        # in the all-gather of every rank's slots, variable t_ids[k] sits
-        # at its padded slot t_slots[k]
-        self._tl_all_ids = as_t(t_ids)
-        self._tl_all_slots = as_t(t_slots)
+    def bring_out(self, x):
+        return self.kkt.tl_scatter(x)
 
-    def tl_gather(self, rhs):
-        """Replicated ``(n,)`` vector -> T-layout pair, without a
-        collective: each rank picks its own slots."""
-        xT = rhs.new_zeros(self.nb_loc * self.bs)
-        xT[self._tl_loc] = rhs[self._tl_ids]
-        return xT, rhs[self.b_ids]
+    def solve(self, r):
+        return self.kkt.solve_tl(self.fac, r)
 
-    def tl_scatter(self, x):
-        """T-layout pair -> replicated ``(n,)`` vector: one all-gather of
-        the T part (the only O(n) collective of the step path)."""
-        xT, xB = x
-        g = self.mesh.all_gather(xT).reshape(-1)
-        out = xT.new_zeros(self.n)
-        out[self._tl_all_ids] = g[self._tl_all_slots]
-        out[self.b_ids] = xB
-        return out
+    def matvec(self, w):
+        return self.kkt.matvec_tl(self.K, w)
 
-    def tl_add(self, a, b):
+    @staticmethod
+    def add(a, b):
         return a[0] + b[0], a[1] + b[1]
 
-    def tl_sub(self, a, b):
+    @staticmethod
+    def sub(a, b):
         return a[0] - b[0], a[1] - b[1]
 
-    def tl_where(self, pred, a, b):
+    @staticmethod
+    def where(pred, a, b):
         return torch.where(pred, a[0], b[0]), torch.where(pred, a[1], b[1])
 
-    def tl_norm(self, a):
-        """2-norm of a T-layout vector: the replicated norm, since padding
-        slots are zero and the border is replicated.  A local partial sum
-        and one scalar psum."""
+    def norm(self, a):
+        """The replicated 2-norm, since padding slots are zero and the
+        border is replicated: a local partial sum and one scalar psum."""
         xT, xB = a
-        return torch.sqrt(self.mesh.psum_scalar(torch.sum(xT * xT))
+        return torch.sqrt(self.kkt.mesh.psum_scalar(torch.sum(xT * xT))
                           + torch.sum(xB * xB))
 
 
@@ -152,12 +135,13 @@ def _cast_inputs(fdt, x, theta, lam, sigma, d, diag_extra):
                                            device=x.device), d, diag_extra)
 
 
-class _AlignedKKT(TLayoutOps):
+class _AlignedKKT:
     """What the aligned scenario and band backends share: this rank's
-    assembly buffer and the border (arrowhead) steps, whose only
-    collectives are O(mB^2) and O(mB) sums over the ranks.  A subclass
-    builds ``_al_tabs``, ``_asm_plan``, ``_dg_src``/``_dg_dst`` and
-    ``_pad_dst``."""
+    assembly buffer, the border (arrowhead) steps, whose only collectives
+    are O(mB^2) and O(mB) sums over the ranks, and the T-layout
+    (:class:`TLayoutSpace`) their refinement runs in.  A subclass builds
+    ``_al_tabs``, ``_asm_plan``, ``_dg_src``/``_dg_dst`` and ``_pad_dst``,
+    and sets :attr:`aligned`."""
 
     # the parent's device tables over the whole system (its assembly
     # plans, the padding identity of every block, the slot permutations),
@@ -172,6 +156,53 @@ class _AlignedKKT(TLayoutOps):
     def _release_whole_system_tables(self):
         for name in self.WHOLE_SYSTEM_TABLES:
             setattr(self, name, None)
+
+    def _build_tlayout(self, rank):
+        """This rank's slot -> variable tables; ``_dev_of_t`` is the rank
+        owning each T variable (in ``t_ids`` order)."""
+        t_ids = self.t_ids_np
+        t_slots = self._slot_np[t_ids]
+        sel = np.nonzero(self._dev_of_t == rank)[0]
+        as_t = lambda a: torch.as_tensor(a, device=self.device)  # noqa: E731
+        self._tl_loc = as_t(t_slots[sel] - rank * self.nb_loc * self.bs)
+        self._tl_ids = as_t(t_ids[sel])
+        # in the all-gather of every rank's slots, variable t_ids[k] sits
+        # at its padded slot t_slots[k]
+        self._tl_all_ids = as_t(t_ids)
+        self._tl_all_slots = as_t(t_slots)
+
+    def refinement(self, fac, K):
+        """:class:`TLayoutSpace` where the layout is aligned."""
+        if not self.aligned:
+            return super().refinement(fac, K)
+        return TLayoutSpace(self, fac, K)
+
+    def solve(self, fac, rhs):
+        if not self.aligned:
+            return super().solve(fac, rhs)
+        return self.tl_scatter(self.solve_tl(fac, self.tl_gather(rhs)))
+
+    def matvec(self, K, v):
+        if not self.aligned:
+            return super().matvec(K, v)
+        return self.tl_scatter(self.matvec_tl(K, self.tl_gather(v)))
+
+    def tl_gather(self, rhs):
+        """Replicated ``(n,)`` vector -> T-layout pair, without a
+        collective: each rank picks its own slots."""
+        xT = rhs.new_zeros(self.nb_loc * self.bs)
+        xT[self._tl_loc] = rhs[self._tl_ids]
+        return xT, rhs[self.b_ids]
+
+    def tl_scatter(self, x):
+        """T-layout pair -> replicated ``(n,)`` vector: one all-gather of
+        the T part (the only O(n) collective of the step path)."""
+        xT, xB = x
+        g = self.mesh.all_gather(xT).reshape(-1)
+        out = xT.new_zeros(self.n)
+        out[self._tl_all_ids] = g[self._tl_all_slots]
+        out[self.b_ids] = xB
+        return out
 
     def _local_buffer(self, x, theta, lam, sigma, d, diag_extra):
         """This rank's assembled buffer (rows, diagonal, padding)."""
@@ -244,7 +275,6 @@ class ShardedScenarioKKT(_AlignedKKT, BlockTridiagKKT):
         except _NotAlignable:
             return
         self.aligned = True
-        self.tlayout = True
         self._release_whole_system_tables()
 
     # ------------------------------------------------------------------
@@ -372,11 +402,6 @@ class ShardedScenarioKKT(_AlignedKKT, BlockTridiagKKT):
         x1, xB = self._border_solve(Z, Ls, sB, u, rT, rB, dt)
         return (x1.to(dt) * sT).reshape(-1), xB
 
-    def solve(self, fac, rhs):
-        if not self.aligned:
-            return super().solve(fac, rhs)
-        return self.tl_scatter(self.solve_tl(fac, self.tl_gather(rhs)))
-
     # ------------------------------------------------------------------
     def matvec_tl(self, K, v):
         """K @ v in T-layout: one O(mB) psum for the border row."""
@@ -386,8 +411,3 @@ class ShardedScenarioKKT(_AlignedKKT, BlockTridiagKKT):
         oT = torch.matmul(D, vT[..., None])[..., 0]
         oT, oB = self._border_matvec(B, C, vT, vB, oT, vT2.dtype)
         return oT.reshape(-1).to(vT2.dtype), oB
-
-    def matvec(self, K, v):
-        if not self.aligned:
-            return super().matvec(K, v)
-        return self.tl_scatter(self.matvec_tl(K, self.tl_gather(v)))

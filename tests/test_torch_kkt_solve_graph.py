@@ -1,6 +1,6 @@
 """The band and scenario KKT's solve as a CUDA graph
-(``solvers/block_tridiag.py``: ``BlockTridiagKKT.solve``, ``_Placement``)
-on the CPU.
+(``solvers/block_tridiag.py``: ``BlockTridiagKKT.solve``, ``_Placement``,
+through ``utils/cuda_graphs.py``'s ``GraphCache``) on the CPU.
 
 A CPU backend solves eagerly, so these tests take the graph path with the
 AD sweeps' stand-in for the capture (``ReplayOnCPU``): a "replay" runs the
@@ -36,13 +36,13 @@ import torch.distributed as dist
 
 from infiniteexamodels_jl_torch import models as tmodels
 from infiniteexamodels_jl_torch.parallel import make_mesh
-from infiniteexamodels_jl_torch.solvers import IpmSolver, block_tridiag
+from infiniteexamodels_jl_torch.solvers import IpmSolver
 from infiniteexamodels_jl_torch.solvers.band_shard import ShardedBandKKT
 from infiniteexamodels_jl_torch.solvers.block_tridiag import BlockTridiagKKT
 from infiniteexamodels_jl_torch.solvers.scenario_shard import (
     ShardedScenarioKKT)
 from infiniteexamodels_jl_torch.transcribe import transcribe
-from infiniteexamodels_jl_torch.utils import timers
+from infiniteexamodels_jl_torch.utils import cuda_graphs, timers
 from portbench import registry
 from test_torch_sweep_graphs import ReplayOnCPU, _run_of
 
@@ -74,10 +74,10 @@ def model(request):
 @pytest.fixture
 def graphed(monkeypatch):
     """Makes a CPU backend take the graph path, through ``ReplayOnCPU``."""
-    monkeypatch.setattr(block_tridiag, "SweepGraph", ReplayOnCPU)
+    monkeypatch.setattr(cuda_graphs, "CapturedCall", ReplayOnCPU)
 
     def on(kkt):
-        kkt._graphed = True
+        kkt._graphs.on = True
         return kkt
     return on
 
@@ -112,7 +112,7 @@ def _eager(model, K, rhs, **kw):
     """``K^{-1} rhs`` by a backend that never takes the graph path."""
     kkt = _kkt(model, **kw)
     fac, ok = kkt.factor(K)
-    assert bool(ok) and not hasattr(fac, "placement")
+    assert bool(ok) and fac.placement is None
     return kkt.solve(fac, rhs)
 
 
@@ -134,7 +134,7 @@ def test_the_graph_path_equals_the_eager_solve(model, graphed, route):
     assert torch.equal(kkt.solve(fac, rhs), want)     # the capture's call
     assert torch.equal(kkt.solve(fac, rhs), want)     # a replay
     assert torch.equal(kkt._eager_solve(fac, rhs), want)
-    assert hasattr(fac, "placement") == (route == "graph")
+    assert (fac.placement is not None) == (route == "graph")
     assert len(kkt._placements) == (route == "graph")
 
 
@@ -167,7 +167,7 @@ def test_a_kept_output_survives_the_next_replay(model, graphed):
     second = kkt.solve(fac, _rhs(model, 2))
     assert torch.equal(kept, copy)
     assert torch.equal(second, _eager(model, K, _rhs(model, 2)))
-    (graph,) = kkt._placements[model.dtype].graphs.values()
+    (graph,) = kkt._graphs.graphs.values()
     assert torch.equal(graph.outputs, second)
 
 
@@ -175,7 +175,7 @@ def test_the_f32_view_keeps_its_own_placement(model, graphed):
     kkt = graphed(_kkt(model))
     solver = IpmSolver(model, kkt=kkt, factor_dtype="mixed", print_level=0)
     kkt32 = solver.kkt32
-    assert kkt32 is not kkt and kkt32._graphed
+    assert kkt32 is not kkt and kkt32._graphs.on
     K, rhs = _K(kkt, 1), _rhs(model, 1)
 
     def solves():
@@ -195,6 +195,7 @@ def test_the_f32_view_keeps_its_own_placement(model, graphed):
     assert sorted(map(str, kkt._placements)) == ["torch.float32",
                                                  "torch.float64"]
     assert kkt32._placements is kkt._placements
+    assert kkt32._graphs is kkt._graphs
     assert torch.equal(x64, _eager(model, K, rhs))
     assert torch.equal(x32, _eager(model, K, rhs,
                                    factor_dtype=torch.float32))
@@ -257,10 +258,10 @@ def test_the_cpu_and_the_sharded_backends_capture_nothing(
             kkt.solve(fac, rhs)
         return fac
 
-    assert not kkt._graphed
+    assert not kkt._graphs.on
     assert _counted(factor_and_solve_twice) == {"kkt.eager_solves": 2}
     assert kkt._placements == {}
-    assert type(factor_and_solve_twice()) is tuple
+    assert factor_and_solve_twice().placement is None
 
 
 @pytest.mark.parametrize("counts,share", [

@@ -41,7 +41,7 @@ def card():
 def case(request, card):
     m, _ = transcribe(MODELS[request.param](), device=card)
     kkt = make_structured_kkt(m)
-    assert kkt._graphed and (kkt.mode, kkt.mB) == MODES[request.param]
+    assert kkt._graphs.on and (kkt.mode, kkt.mB) == MODES[request.param]
     return m, kkt
 
 
@@ -96,7 +96,7 @@ def _solve(card, graphed):
     class Solver(IpmSolver):
         def __init__(self, model, **options):
             super().__init__(model, **options)
-            self.kkt._graphed = graphed
+            self.kkt._graphs.on = graphed
 
     m = tmodels.quad(num_supports=1000)
     backend = ExaTranscriptionBackend(Solver, device=card,

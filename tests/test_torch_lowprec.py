@@ -3,8 +3,8 @@
 
 - ``SimdModel.kkt_vals(dtype=float32)`` on quad-12 and farmer-32: an f32
   result within 1e-5 of the largest |value| of the JAX package's;
-- the f32 band / block backend (``factor_dtype`` and ``assemble_dtype``
-  float32) on quad-30 (band) and farmer-32 (``block_diag`` with a border):
+- the f32 band / block backend (its ``low_precision_view``: f32 assembly
+  and factorization) on quad-30 (band) and farmer-32 (``block_diag`` with a border):
   f32 blocks within 1e-5 and an f32 solve within 1e-4 of the JAX
   backend's, handed back in f64;
 - farmer-32 and quad-12 at tol 1e-8 in each step set: ``first_order`` with
@@ -96,8 +96,7 @@ def test_f32_backend_matches_jax(name, mode, mB):
     jm, tm = _both(name)
     jb = JBlockKKT(jm, factor_dtype=jnp.float32)
     jb.assemble_dtype = jnp.float32
-    tb = BlockTridiagKKT(tm, factor_dtype=torch.float32)
-    tb.assemble_dtype = torch.float32
+    tb = BlockTridiagKKT(tm).low_precision_view()
     assert (tb.mode, tb.mB) == (jb.mode, jb.mB) == (mode, mB)
     pt = _point(jm, 5)
     Kj = jax.jit(jb.assemble)(jnp.asarray(pt["x"]), jm.theta,

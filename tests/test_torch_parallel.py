@@ -117,7 +117,8 @@ def test_rank_holds_only_its_blocks(ranks, case):
 
 @pytest.mark.parametrize("case", ["scenario", "band"])
 def test_tlayout_roundtrip_and_norm(ranks, case):
-    """tl_scatter(tl_gather(v)) == v exactly, and tl_norm is the 2-norm."""
+    """In the T-layout refinement space bring_out(bring_in(v)) == v
+    exactly, and norm is the 2-norm."""
     got = ranks[0][case]
     v = np.random.default_rng(ROUNDTRIP_SEED).standard_normal(got["n"])
     np.testing.assert_array_equal(got["roundtrip"], v)
@@ -126,10 +127,10 @@ def test_tlayout_roundtrip_and_norm(ranks, case):
 
 
 def test_scenario_step_communication_is_border_only(ranks):
-    """One T-layout step of the scenario KKT (assemble, factor, solve_tl,
-    matvec_tl, a refinement round, tl_norm) has no all-gather and no
-    collective above mB^2 + mB + 64 elements (< n); the replicated solve
-    wrapper adds exactly one all-gather."""
+    """One T-layout step of the scenario KKT (assemble, factor, and in its
+    refinement space a solve, a product, a refinement round and a norm)
+    has no all-gather and no collective above mB^2 + mB + 64 elements
+    (< n); the replicated solve wrapper adds exactly one all-gather."""
     got = ranks[0]["scenario"]
     mB, n = got["mB"], got["n"]
     cap = mB * mB + mB + 64

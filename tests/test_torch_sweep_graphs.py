@@ -1,5 +1,5 @@
-"""The AD sweeps' CUDA graphs (``ops/model.py`` ``SimdModel._sweep``,
-``SweepGraph``) on the CPU.
+"""The AD sweeps' CUDA graphs (``ops/model.py``'s ``SimdModel._graphs``, a
+``utils/cuda_graphs.py`` ``GraphCache``) on the CPU.
 
 A CPU model runs every sweep eagerly, so these tests check the plumbing
 around the capture with a stand-in for it (``ReplayOnCPU``): a "replay"
@@ -28,11 +28,10 @@ import torch
 import torch.distributed as dist
 
 from infiniteexamodels_jl_torch import models as tmodels
-from infiniteexamodels_jl_torch.ops import model as model_mod
 from infiniteexamodels_jl_torch.parallel import make_mesh, shard_model
 from infiniteexamodels_jl_torch.solvers import IpmSolver
 from infiniteexamodels_jl_torch.transcribe import transcribe
-from infiniteexamodels_jl_torch.utils import timers
+from infiniteexamodels_jl_torch.utils import cuda_graphs, timers
 from portbench import registry
 
 OPF_SEED = 2 ** 31 + 901
@@ -42,7 +41,7 @@ SWEEPS = ("obj", "cons", "obj_and_grad", "cons_and_jac", "kkt_vals",
           "kkt_vals_f32")
 
 
-class ReplayOnCPU(model_mod.SweepGraph):
+class ReplayOnCPU(cuda_graphs.CapturedCall):
     """The capture's stand-in on the CPU: the outputs are the body's on the
     static inputs, and a replay writes the body's new values into them."""
 
@@ -85,10 +84,10 @@ def model(request):
 @pytest.fixture
 def graphed(monkeypatch):
     """Makes a CPU model take the graph path, through ``ReplayOnCPU``."""
-    monkeypatch.setattr(model_mod, "SweepGraph", ReplayOnCPU)
+    monkeypatch.setattr(cuda_graphs, "CapturedCall", ReplayOnCPU)
 
     def on(m):
-        m._graphed = True
+        m._graphs.on = True
         return m
     return on
 
@@ -139,7 +138,7 @@ def test_a_sweep_equals_its_eager_body(model, graphed, sweep, route):
     want = _call(model, sweep, p, eager=True)
     assert _equal(_call(model, sweep, p), want)      # the capture's call
     assert _equal(_call(model, sweep, p), want)      # a replay
-    assert len(model._graphs) == (route == "graph")
+    assert len(model._graphs.graphs) == (route == "graph")
 
 
 @pytest.mark.parametrize("sweep", SWEEPS)
@@ -154,7 +153,7 @@ def test_a_kept_output_survives_the_next_call(model, graphed, sweep):
     assert not _equal(second, copy)
     # the graph's own outputs hold the second call's values: without the
     # clones the first call's outputs would have changed with them
-    (g,) = model._graphs.values()
+    (g,) = model._graphs.graphs.values()
     assert _equal(_flat(g.outputs), second)
 
 
@@ -186,7 +185,7 @@ def test_one_capture_per_sweep_then_replays(model, graphed):
     assert _counted(every_sweep_twice) == {
         "ad.graph_captures": len(SWEEPS), "ad.graph_replays": len(SWEEPS)}
     model._place(None)            # new gather tables: the graphs go
-    assert model._graphs == {}
+    assert model._graphs.graphs == {}
     graphed(model)                # (``_place`` judged the CPU anew)
     assert _counted(every_sweep_twice)["ad.graph_captures"] == len(SWEEPS)
 
@@ -211,9 +210,9 @@ def test_the_cpu_and_a_mesh_capture_nothing(model, where, request):
         for s in SWEEPS:
             _call(model, s, p)
 
-    assert not model._graphed
+    assert not model._graphs.on
     assert _counted(every_sweep) == {"ad.eager_sweeps": len(SWEEPS)}
-    assert model._graphs == {}
+    assert model._graphs.graphs == {}
 
 
 def _run_of(res):

@@ -26,10 +26,10 @@ import torch
 import torch.distributed as dist
 
 from infiniteexamodels_jl_torch import models as tmodels
-from infiniteexamodels_jl_torch.ops.model import SweepGraph
 from infiniteexamodels_jl_torch.parallel import make_mesh, shard_model
 from infiniteexamodels_jl_torch.transcribe import transcribe
 from infiniteexamodels_jl_torch.utils import timers
+from infiniteexamodels_jl_torch.utils.cuda_graphs import CapturedCall
 
 QUAD1000_OBJECTIVE = 568.839978   # the JAX CPU path, tol 1e-6
 MODELS = {"quad-1000": lambda: tmodels.quad(num_supports=1000),
@@ -48,7 +48,7 @@ def card():
 @pytest.fixture(scope="module", params=sorted(MODELS))
 def model(request, card):
     m, _ = transcribe(MODELS[request.param](), device=card)
-    assert m._graphed
+    assert m._graphs.on
     return m
 
 
@@ -105,7 +105,7 @@ def test_a_graph_survives_new_data_and_place_drops_it(card):
     p = _point(m, 1)
     for s in SWEEPS:
         _call(m, s, p)
-    graphs = dict(m._graphs)
+    graphs = dict(m._graphs.graphs)
     assert len(graphs) == len(SWEEPS)
     rng = np.random.default_rng(0)
     for par in m.core.parameters:
@@ -117,9 +117,9 @@ def test_a_graph_survives_new_data_and_place_drops_it(card):
     p["x"] = m.x0
     for s in SWEEPS:
         assert _equal(_call(m, s, p), _call(m, s, p, eager=True)), s
-    assert m._graphs == graphs            # the same graphs, replayed
+    assert m._graphs.graphs == graphs            # the same graphs, replayed
     m._place(None)
-    assert m._graphs == {}
+    assert m._graphs.graphs == {}
 
 
 @pytest.mark.cuda
@@ -135,7 +135,7 @@ def test_a_sharded_model_captures_nothing(card, tmp_path):
                 _call(m, s, p)
     finally:
         dist.destroy_process_group()
-    assert not m._graphed and m._graphs == {}
+    assert not m._graphs.on and m._graphs.graphs == {}
     assert rec.counts == {"ad.eager_sweeps": len(SWEEPS)}
 
 
@@ -144,14 +144,14 @@ def test_no_collection_falls_inside_a_capture(card):
     m, _ = transcribe(tmodels.quad(num_supports=100), device=card)
     p = _point(m, 1)
     _call(m, "obj", p)
-    spare = list(m._graphs)
+    spare = list(m._graphs.graphs)
     args = (p["x"], m.theta)
 
     def body(x, theta):
         if torch.cuda.is_current_stream_capturing() and spare:
             # the obj sweep's graph dies in a cycle, and the allocations
             # after it make a collection due at once
-            cycle = [m._graphs.pop(spare.pop())]
+            cycle = [m._graphs.graphs.pop(spare.pop())]
             cycle.append(cycle)
             del cycle
             [[] for _ in range(1000)]
@@ -160,10 +160,10 @@ def test_no_collection_falls_inside_a_capture(card):
     threshold = gc.get_threshold()
     gc.set_threshold(1)
     try:
-        g = SweepGraph(body, args, {})
+        g = CapturedCall(body, args, {})
     finally:
         gc.set_threshold(*threshold)
-    assert not spare and m._graphs == {}
+    assert not spare and m._graphs.graphs == {}
     gc.collect()                          # the dead graph goes here
     assert _equal(_flat(g(args)), _flat(m._eager_cons(*args)))
 
@@ -178,7 +178,7 @@ def _solve(card, graphed):
                                       print_level=0)
     m.set_transformation_backend(backend)
     backend.build(m)
-    backend.model._graphed = graphed
+    backend.model._graphs.on = graphed
     first = backend.optimize(m)
     return first, backend.optimize(m)
 

@@ -110,7 +110,7 @@ def _kkt_case(mesh, case):
     from infiniteexamodels_jl_torch.parallel import shard_model
     from infiniteexamodels_jl_torch.solvers.band_shard import ShardedBandKKT
     from infiniteexamodels_jl_torch.solvers.scenario_shard import (
-        ShardedScenarioKKT)
+        ShardedScenarioKKT, TLayoutSpace)
     from infiniteexamodels_jl_torch.transcribe import transcribe
 
     (name, kw), seed, shift, lam_scale = KKT_CASES[case]
@@ -125,7 +125,8 @@ def _kkt_case(mesh, case):
     lam, d, de, rhs = t(lam), t(d), t(de), t(rhs)
     K = kkt.assemble(x, th, lam, 1.0, d, de)
     fac, ok = kkt.factor(K)
-    out = dict(aligned=kkt.aligned, tlayout=kkt.tlayout, nb=kkt.nb,
+    tlayout = isinstance(kkt.refinement(fac, K), TLayoutSpace)
+    out = dict(aligned=kkt.aligned, tlayout=tlayout, nb=kkt.nb,
                bs=kkt.bs, mB=kkt.mB, n=kkt.n, nd=kkt.nd, nb_loc=kkt.nb_loc,
                ok=bool(ok), matvec=kkt.matvec(K, rhs).numpy(),
                solve=kkt.solve(fac, rhs).numpy(),
@@ -134,22 +135,24 @@ def _kkt_case(mesh, case):
                    if getattr(kkt, name) is not None],
                block_elements=[int(a.numel()) for a in K[:2]])
     # one T-layout step: assemble, factor, a solve and a refinement round
+    # in the backend's refinement space
     with mesh.recording() as log:
         K = kkt.assemble(x, th, lam, 1.0, d, de)
         fac, _ = kkt.factor(K)
-        r = kkt.tl_gather(rhs)
-        dx = kkt.solve_tl(fac, r)
-        resid = kkt.tl_sub(r, kkt.matvec_tl(K, dx))
-        dx = kkt.tl_add(dx, kkt.solve_tl(fac, resid))
-        kkt.tl_norm(resid)
+        space = kkt.refinement(fac, K)
+        r = space.bring_in(rhs)
+        dx = space.solve(r)
+        resid = space.sub(r, space.matvec(dx))
+        dx = space.add(dx, space.solve(resid))
+        space.where(space.norm(resid) > 0, dx, resid)
     out["step_log"] = list(log)
     with mesh.recording() as log:
         kkt.solve(fac, rhs)
     out["wrapper_log"] = list(log)
     # T-layout round trip and norm
     v = t(np.random.default_rng(ROUNDTRIP_SEED).standard_normal(model.nvar))
-    out["roundtrip"] = kkt.tl_scatter(kkt.tl_gather(v)).numpy()
-    out["tl_norm"] = float(kkt.tl_norm(kkt.tl_gather(v)))
+    out["roundtrip"] = space.bring_out(space.bring_in(v)).numpy()
+    out["tl_norm"] = float(space.norm(space.bring_in(v)))
     return out
 
 
