@@ -28,6 +28,7 @@ checkpoints) are taken at the same iterations here.
 """
 from __future__ import annotations
 
+import functools
 import os
 import time
 from typing import NamedTuple
@@ -35,6 +36,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.cuda_graphs import GraphCache
 from ..utils.timers import Recorder, count, phases, span
 from .kkt import DenseKKT
 from .results import ExecutionStats
@@ -64,10 +66,17 @@ TRACE_FILE = "ipm_solve.pt.trace.json"   # solve(trace_dir=...) writes it
 # recalc triggers are evaluated at the iterations where it returns to the
 # host, so the two trajectories agree
 HOST_CHUNK = 32
+# the step's segments captured as CUDA graphs, replayed from them, and run
+# eagerly (``IpmSolver._step_graphs``)
+IPM_COUNTERS = ("ipm.graph_captures", "ipm.graph_replays",
+                "ipm.eager_segments")
 # counters every solve's result carries, at 0 where nothing happened: the
-# second-order corrections tried, and the rounds of the condensed solve's
+# second-order corrections tried, the rounds of the condensed solve's
 # iterative refinement (each a solve and a matvec, or in ir32 a PCG step)
-ZEROED_COUNTS = ("ipm.soc_trials", "kkt.refine_rounds")
+# and the segments' graphs
+ZEROED_COUNTS = ("ipm.soc_trials", "kkt.refine_rounds") + IPM_COUNTERS
+# options that only the host loop reads: a change keeps the step's graphs
+HOST_OPTIONS = ("max_iter", "max_wall_time", "print_level")
 
 
 class IpmState(NamedTuple):
@@ -122,6 +131,135 @@ class IpmState(NamedTuple):
     log_rr: torch.Tensor
     # scaled overall KKT error at the step's start (the convergence E)
     log_E0: torch.Tensor
+
+
+class _Track(NamedTuple):
+    """The convergence test and best-iterate tracker of a step's
+    evaluation, as the update takes them."""
+    status: torch.Tensor
+    acceptable_count: torch.Tensor
+    acc_visits: torch.Tensor
+    cycle_stop: torch.Tensor
+    better: torch.Tensor
+    best_E: torch.Tensor
+    best_fobj: torch.Tensor
+    best_inf_pr: torch.Tensor
+    best_inf_du: torch.Tensor
+    feas_fobj: torch.Tensor
+    fval: torch.Tensor
+    inf_pr: torch.Tensor
+    inf_du: torch.Tensor
+    E0: torch.Tensor
+
+
+class _Eval(NamedTuple):
+    """``IpmSolver._seg_eval``'s results."""
+    lz: torch.Tensor
+    uz: torch.Tensor
+    grad: torch.Tensor
+    cval: torch.Tensor
+    jvals: torch.Tensor
+    sd: torch.Tensor
+    go: torch.Tensor             # the barrier test at the step's mu
+    mu_loqo: torch.Tensor        # the adaptive barrier's candidate, or None
+    track: _Track
+
+
+class _Barrier(NamedTuple):
+    """The barrier loop's state: mu, tau, the filter and the next test."""
+    mu: torch.Tensor
+    tau: torch.Tensor
+    filter_theta: torch.Tensor
+    filter_phi: torch.Tensor
+    filter_len: torch.Tensor
+    go: torch.Tensor
+
+
+class _Damping(NamedTuple):
+    """The dual damping that is on: the ray's proximal weight and pull
+    (``ray_damping``) and the mu-scaled dual-step damping
+    (``prox_dual_kappa``); None where off."""
+    delta_prox: torch.Tensor
+    delta_pd: torch.Tensor
+    prox_pull: torch.Tensor
+
+
+def _without_best(st):
+    """``st`` without the best iterate's vectors, which only the update
+    reads: the other segments take less into their graphs."""
+    return st._replace(best_x=None, best_s=None, best_y=None, best_zl=None,
+                       best_zu=None)
+
+
+def _damped(d, damping):
+    """``d`` plus the dual damping that is on (in the reference's order of
+    additions)."""
+    if damping.delta_prox is not None:
+        d = d + damping.delta_prox
+    if damping.delta_pd is not None:
+        d = d + damping.delta_pd
+    return d
+
+
+def _pulled(r, damping):
+    """``r`` less the ray's proximal pull, where it is on."""
+    return r if damping.prox_pull is None else r - damping.prox_pull
+
+
+class _Direction(NamedTuple):
+    """``IpmSolver._seg_direction``'s results."""
+    dl: torch.Tensor
+    du: torch.Tensor
+    sig_l: torch.Tensor
+    sig_u: torch.Tensor
+    sigma: torch.Tensor
+    rx: torch.Tensor
+    rs: torch.Tensor
+    rp: torch.Tensor
+    delta_c_floor: torch.Tensor
+    damping: _Damping
+    refine_accept: torch.Tensor  # None unless ir32
+    refine_tol: torch.Tensor     # None unless ir32
+    skip_zero: torch.Tensor
+    first_dw: torch.Tensor
+    bump_from_zero: torch.Tensor
+    kw_plus: torch.Tensor
+    zero: torch.Tensor           # the ladder's start values: 0, False
+    no: torch.Tensor
+    theta_c: torch.Tensor
+    phi_c: torch.Tensor
+    gphi_x: torch.Tensor
+    gphi_s: torch.Tensor
+
+
+class _System(NamedTuple):
+    """``IpmSolver._seg_system``'s results."""
+    inv_ss: torch.Tensor
+    D: torch.Tensor
+    diag_extra: torch.Tensor
+    lam: torch.Tensor
+    sig: torch.Tensor
+    d: torch.Tensor
+    rhs2: torch.Tensor
+    rhs: torch.Tensor
+    rhs_norm: torch.Tensor
+
+
+class _TrialPoint(NamedTuple):
+    """``IpmSolver._seg_trial_point``'s results."""
+    alpha: torch.Tensor
+    dphi: torch.Tensor
+    xt: torch.Tensor
+    stt: torch.Tensor
+
+
+class _Trial(NamedTuple):
+    """``IpmSolver._seg_trial``'s results."""
+    theta_t: torch.Tensor
+    acc: torch.Tensor
+    ftype: torch.Tensor
+    need_soc: torch.Tensor
+    alpha_next: torch.Tensor
 
 
 DEFAULTS = dict(
@@ -285,6 +423,7 @@ class IpmSolver:
     def __init__(self, model, kkt=None, **options):
         self.model = model
         self.opts = dict(DEFAULTS)
+        self._graphs = self._graphs_for = None
         self.set_options(**options)
         if self.opts["refine_accept"] is None:
             self.opts["refine_accept"] = 1e-6
@@ -312,6 +451,8 @@ class IpmSolver:
         for k, v in options.items():
             if k not in DEFAULTS:
                 raise ValueError(f"unknown IPM option {k!r}")
+            if k not in HOST_OPTIONS and self.opts[k] != v:
+                self._graphs = None     # captured with the old value
             self.opts[k] = v
         if "factor_dtype" in options and hasattr(self, "kkt"):
             self.kkt32 = self._low_precision_view()
@@ -333,6 +474,7 @@ class IpmSolver:
                     or model.ncon != self.model.ncon):
                 raise ValueError("reset with a different-shaped model")
             self.model = model
+            self._graphs = None
         return self
 
     # ------------------------------------------------------------------
@@ -552,9 +694,30 @@ class IpmSolver:
         evaluations and KKT error (``ipm.eval``), the barrier update
         (``ipm.barrier``), the regularized Newton direction
         (``ipm.direction``), the line search (``ipm.line_search``) and the
-        dual step, filter and state (``ipm.update``)."""
+        dual step, filter and state (``ipm.update``).
+
+        The IPM's own vector algebra runs in segments, the ``_seg_*``
+        methods: functions of tensors that return tensors, cut at every
+        host read, AD sweep and call into the KKT backend.  Each is one
+        CUDA graph where the step's graphs are on (:meth:`_step_graphs`),
+        and eager, the same function, elsewhere."""
         with phases() as phase:
             return self._step_phases(st, consts, kkt, phase)
+
+    def _step_graphs(self, consts):
+        """The cache of the segments' graphs.  A graph reads the model's
+        index tensors, the tensors of ``consts`` and the options as they
+        were at its capture, so the cache is made anew for other constants
+        (a re-solve at new parameter values), after ``set_options`` has
+        changed an option the step reads and after ``reset`` to another
+        model; over a mesh nothing is captured."""
+        mesh = getattr(self.model, "mesh", None)
+        if (self._graphs is None or self._graphs_for[0] is not consts
+                or self._graphs_for[1] is not mesh):
+            self._graphs = GraphCache(self.model.device, mesh,
+                                      *IPM_COUNTERS)
+            self._graphs_for = (consts, mesh)
+        return self._graphs
 
     def _step_phases(self, st, consts, kkt, phase):
         phase("ipm.eval")
@@ -563,191 +726,34 @@ class IpmSolver:
         o = self.opts
         dt = m.dtype
         dev = m.device
-        n, mm = m.nvar, m.ncon
-        has_l, has_u = consts["has_l"], consts["has_u"]
-        tol = consts["tol"]
+        n = m.nvar
+        theta = consts["theta"]
         inf = float("inf")
+        graphs = self._step_graphs(consts)
 
-        # tiny-slack correction: if a bound distance has collapsed to the
-        # floating-point cancellation level (lifted equality slacks do this
-        # when c(x) sits outside the relaxation window), move the bound
-        # outward by eps^(3/4)*max(1,|b|) so Sigma stays representable
-        eps = torch.finfo(dt).eps
-        z_all = torch.cat([st.x, st.s])
-        maxl = torch.clamp(torch.abs(st.lz), min=1.0)
-        maxu = torch.clamp(torch.abs(st.uz), min=1.0)
-        lz = torch.where(has_l & (z_all - st.lz < 10 * eps * maxl),
-                         st.lz - eps ** 0.75 * maxl, st.lz)
-        uz = torch.where(has_u & (st.uz - z_all < 10 * eps * maxu),
-                         st.uz + eps ** 0.75 * maxu, st.uz)
-        st = st._replace(lz=lz, uz=uz)
+        def segment(tag, body, *args, **kwargs):
+            return graphs(tag, functools.partial(body, consts), *args,
+                          **kwargs)
 
-        fval_u, grad_u = m.obj_and_grad(st.x, consts["theta"])
-        fval = fval_u * m.sense * consts["sf"]
-        grad = grad_u * m.sense * consts["sf"]
-        cval_u, jvals_u = m.cons_and_jac(st.x, consts["theta"])
-        cval = cval_u * consts["sc"]
-        jvals = jvals_u * consts["sc"][m.jac_rows]
-
-        # -- convergence -------------------------------------------------
-        zero = torch.zeros((), dtype=dt, device=dev)
-        E0, inf_pr, inf_du, inf_comp, sd, sc_ = self._kkt_error(
-            st, consts, grad, jvals, cval, zero)
-        converged = E0 <= tol
-        # Ipopt-style acceptable criteria: scaled overall error within
-        # acceptable_tol AND the component-wise guards
-        acc_now = ((E0 <= consts["acceptable_tol"])
-                   & (inf_pr <= o["acceptable_constr_viol_tol"])
-                   & (inf_du / sd <= o["acceptable_dual_inf_tol"])
-                   & (inf_comp / sc_ <= o["acceptable_compl_inf_tol"]))
-        acceptable_count = torch.where(acc_now, st.acceptable_count + 1, 0)
-        acc_done = acceptable_count >= consts["acceptable_iter"]
-        bad = ~torch.isfinite(E0)
-        diverged = (torch.abs(fval) > 1e20) | (_amax(torch.abs(st.x)) > 1e20)
-
-        # best-iterate tracker + near-optimal VISIT counter (degenerate-
-        # endgame limit-cycle escape): the visit/best metric is the KKT
-        # error with the W-B scalings CAPPED at s_max, so a degenerate
-        # multiplier ray cannot make a far-from-optimal point look
-        # stationary; at acceptable_visit_limit visits the solve returns
-        # "acceptable" with the best iterate restored (Ipopt:
-        # SOLVED_TO_ACCEPTABLE_LEVEL)
-        E_cap = torch.maximum(
-            torch.maximum(inf_du / torch.clamp(sd, max=o["s_max"]), inf_pr),
-            inf_comp / torch.clamp(sc_, max=o["s_max"]))
-        # objective sanity guard: a near-KKT candidate far above the best
-        # feasible-ish objective is a spurious stationary point and must
-        # not be stored/restored
-        feasish = inf_pr <= 1e2 * tol
-        feas_fobj = torch.where(feasish, torch.minimum(st.feas_fobj, fval),
-                                st.feas_fobj)
-        obj_bound = feas_fobj + o["restore_obj_guard"] * torch.clamp(
-            torch.abs(feas_fobj), min=1.0)
-        obj_ok = fval <= obj_bound
-        stale = torch.isfinite(st.best_fobj) & (st.best_fobj > obj_bound)
-        prev_best_E = torch.where(stale, inf, st.best_E)
-        visit = ((E_cap <= o["acceptable_visit_tol_factor"] * tol)
-                 & (inf_pr <= 1e2 * tol) & obj_ok)
-        acc_visits = st.acc_visits + visit.to(torch.int32)
-        better = (E_cap < prev_best_E) & obj_ok
-        best_E = torch.where(better, E_cap, prev_best_E)
-        best_fobj = torch.where(better, fval, st.best_fobj)
-        best_inf_pr = torch.where(better, inf_pr, st.best_inf_pr)
-        best_inf_du = torch.where(better, inf_du, st.best_inf_du)
-        best_x = torch.where(better, st.x, st.best_x)
-        best_s = torch.where(better, st.s, st.best_s)
-        best_y = torch.where(better, st.y, st.best_y)
-        best_zl = torch.where(better, st.zl, st.best_zl)
-        best_zu = torch.where(better, st.zu, st.best_zu)
-        cycle_stop = ((acc_visits >= o["acceptable_visit_limit"])
-                      & ~converged & torch.isfinite(best_E))
-
-        status = torch.where(
-            converged, FIRST_ORDER,
-            torch.where(bad, INVALID,
-                        torch.where(diverged, DIVERGED,
-                                    torch.where(acc_done | cycle_stop,
-                                                ACCEPTABLE, RUNNING))))
+        fval_u, grad_u = m.obj_and_grad(st.x, theta)
+        cval_u, jvals_u = m.cons_and_jac(st.x, theta)
+        ev = segment("eval", self._seg_eval, _without_best(st), fval_u,
+                     grad_u, cval_u, jvals_u)
+        st = st._replace(lz=ev.lz, uz=ev.uz)
+        grad, cval, jvals = ev.grad, ev.cval, ev.jvals
+        light = _without_best(st)
 
         # -- barrier update (may fire repeatedly) -------------------------
         phase("ipm.barrier")
-        # adaptive mode: the next mu is the LOQO centrality rule
-        # sigma = 0.1*min(0.05*(1-xi)/xi, 2)^3 applied to the average
-        # complementarity, clipped into [monotone schedule, 0.8*mu]
-        if o["barrier"] == "adaptive":
-            z0 = torch.cat([st.x, st.s])
-            cp = torch.cat([torch.where(has_l, (z0 - lz) * st.zl, 0.0),
-                            torch.where(has_u, (uz - z0) * st.zu, 0.0)])
-            cmask = torch.cat([has_l, has_u])
-            avg_c = torch.sum(torch.where(cmask, cp, 0.0)) / torch.clamp(
-                torch.sum(cmask), min=1)
-            min_c = _amin_inf(torch.where(cmask, cp, inf))
-            xi = min_c / torch.clamp(avg_c, min=torch.finfo(dt).tiny)
-            sig_c = 0.1 * torch.clamp(
-                0.05 * (1.0 - xi) / torch.clamp(xi, min=1e-12), max=2.0) ** 3
-            mu_loqo = sig_c * avg_c
-        mu, tau = st.mu, st.tau
-        filter_len, filter_theta, filter_phi = (st.filter_len,
-                                                st.filter_theta,
-                                                st.filter_phi)
-        mu_floor = tol * o["mu_min_fraction"]
-        while True:
-            E_mu = self._kkt_error(st, consts, grad, jvals, cval, mu)[0]
-            if not _read((E_mu <= o["kappa_epsilon"] * mu)
-                         & (mu > mu_floor)):
-                break
-            mu_new = torch.maximum(
-                mu_floor,
-                torch.minimum(o["kappa_mu"] * mu, mu ** o["theta_mu"]))
-            if o["barrier"] == "adaptive":
-                mu_new = torch.minimum(torch.maximum(mu_loqo, mu_new),
-                                       0.8 * mu)
-            tau = torch.clamp(1.0 - mu_new, min=o["tau_min"])
-            # reset filter to the theta_max entry only
-            ft_new = torch.full_like(filter_theta, inf)
-            ft_new[0] = filter_theta[0]
-            filter_theta = ft_new
-            filter_phi = torch.full_like(filter_phi, -inf)
-            filter_len = _i32(1, dev)
-            mu = mu_new
-
-        # -- barrier-scaled quantities ------------------------------------
-        phase("ipm.direction")
-        z = torch.cat([st.x, st.s])
-        dl = torch.where(has_l, z - lz, 1.0)
-        du = torch.where(has_u, uz - z, 1.0)
-        sig_l = torch.where(has_l, st.zl / dl, 0.0)
-        sig_u = torch.where(has_u, st.zu / du, 0.0)
-        sigma = sig_l + sig_u                       # (n+m,)
-        mu_dl = torch.where(has_l, mu / dl, 0.0)
-        mu_du = torch.where(has_u, mu / du, 0.0)
-
-        # bound-damping gradient contribution (one-sided bounds only)
-        kd = o["kappa_d"]
-        damp = kd * mu * ((has_l & ~has_u).to(dt) - (has_u & ~has_l).to(dt))
-        jty = m.jtprod(jvals, st.y)
-        rx = grad + jty - mu_dl[:n] + mu_du[:n] + damp[:n]
-        rs = -st.y - mu_dl[n:] + mu_du[n:] + damp[n:]
-        rp = cval - st.s
+        bar = _Barrier(st.mu, st.tau, st.filter_theta, st.filter_phi,
+                       st.filter_len, ev.go)
+        while _read(bar.go):
+            bar = segment("barrier", self._seg_barrier, light, grad, jvals,
+                          cval, bar, ev.mu_loqo)
+        mu, tau = bar.mu, bar.tau
 
         # -- condensed system with inertia-free regularization ------------
-        sigma_x, sigma_s = sigma[:n], sigma[n:]
-        # mu-floored dual regularization: caps D = 1/(1/Sigma_s+dc) for the
-        # lifted equality rows, keeping the condensed system factorizable
-        delta_c_floor = o["delta_c_bar"] * \
-            torch.clamp(mu, min=o["delta_c_mu_floor"]) ** 0.25
-
-        # dual-ray proximal damping (the ray_* options): zero everywhere
-        # except inside a live ray signature; with its proximal pull on the
-        # capped excess of y.  Both are None when the option is off, and so
-        # is the mu-scaled dual-step damping (prox_dual_kappa), gated on mu
-        # so the global phase's basin is untouched: the default step runs
-        # none of their elementwise work
-        delta_prox = prox_pull = delta_pd = None
-        if o["ray_damping"]:
-            ray_live = ((_amax0(torch.abs(st.y)) > o["ray_y_cap"])
-                        & (inf_pr <= 1e2 * tol)
-                        & (inf_du / torch.clamp(sd, max=o["s_max"])
-                           > o["acceptable_visit_tol_factor"] * tol))
-            delta_prox = torch.where(ray_live, o["ray_delta"], zero)
-            prox_pull = delta_prox * (
-                st.y - torch.clamp(st.y, -o["ray_y_cap"], o["ray_y_cap"]))
-        if o["prox_dual_kappa"]:
-            delta_pd = torch.where(mu <= o["prox_dual_mu_max"],
-                                   o["prox_dual_kappa"] * mu, zero)
-
-        def damped(d):
-            """``d`` plus the dual damping that is on (in the reference's
-            order of additions)."""
-            if delta_prox is not None:
-                d = d + delta_prox
-            if delta_pd is not None:
-                d = d + delta_pd
-            return d
-
-        def pulled(r):
-            return r if prox_pull is None else r - prox_pull
-
+        phase("ipm.direction")
         # the f32 step sets demote to the f64 one on a refinement failure
         # instead of walking the regularization ladder: a precision failure
         # is not an inertia failure, and bumping delta_w for it damps the
@@ -757,6 +763,12 @@ class IpmSolver:
         # and accepts a step at least as good as a pure-f32 one
         can_demote = kkt is self.kkt32 and kkt is not None
         ir_ref = can_demote and o["factor_dtype"] == "ir32"
+        dr = segment("direction", self._seg_direction, light, ev.track,
+                     ev.sd, grad, cval, jvals, mu, ir_ref=ir_ref)
+        rx, rs, rp = dr.rx, dr.rs, dr.rp
+        delta_c_floor = dr.delta_c_floor
+        zero = dr.zero
+
         sfx = "_f32" if can_demote and not ir_ref else ""
         refine_tol = o["refine_tol" + sfx]
         refine_accept = o["refine_accept_f32" if ir_ref
@@ -765,17 +777,11 @@ class IpmSolver:
         refine_contract = o["refine_contract_ir" if ir_ref
                             else "refine_contract"]
         if ir_ref:
-            # both tighten with this iteration's mu: the acceptance floored
-            # at f32 quality, the target down to refine_tol
-            refine_accept = torch.clamp(o["refine_mu_factor_ir"] * mu,
-                                        refine_accept, 1e-2)
-            refine_tol = torch.clamp(0.05 * o["refine_mu_factor_ir"] * mu,
-                                     refine_tol, o["refine_tol_cap_ir"])
+            # both tighten with this iteration's mu (``_seg_direction``)
+            refine_accept, refine_tol = dr.refine_accept, dr.refine_tol
         # (the reference's f64 step set also has a branch for f32
         # refinement residuals on the TPU, where f64 is emulated; it is
         # TPU-only and not ported)
-        tiny = torch.finfo(dt).tiny
-
         def refine_pcg(fac, rhs, dx, rhs_norm, D, diag_extra):
             """ir32: CG on the exact f64 operator, preconditioned by the f32
             factorization; returns the best iterate and its relative
@@ -785,7 +791,7 @@ class IpmSolver:
             def Kmv(w):
                 # matrix-free: one Hessian-vector sweep, two COO J products
                 # and the condensed diagonal
-                return (m.hvp_lag(st.x, consts["theta"], lam_s,
+                return (m.hvp_lag(st.x, theta, lam_s,
                                   consts["sf"] * m.sense, w)
                         + m.jtprod(jvals, D * m.jprod(jvals, w))
                         + diag_extra * w)
@@ -823,21 +829,14 @@ class IpmSolver:
             return best_x, best_rr
 
         def make_step(delta_w, delta_c):
-            inv_ss = 1.0 / (sigma_s + delta_w)
-            D = 1.0 / damped(inv_ss + delta_c)
-            diag_extra = sigma_x + delta_w
-            # model-side values are for UNSCALED f and c: fold scalings in
-            # (internal y multiplies scaled c_i = sc_i*c_i; scaled J = sc*J)
-            sc = consts["sc"]
+            sy = segment("system", self._seg_system, dr.sigma, rx, rs, rp,
+                         jvals, st.y, dr.damping, delta_w, delta_c)
+            D, diag_extra, rhs = sy.D, sy.diag_extra, sy.rhs
             with span("kkt.assemble"):
-                K = kkt.assemble(st.x, consts["theta"], st.y * sc,
-                                 consts["sf"] * m.sense, D * sc * sc,
+                K = kkt.assemble(st.x, theta, sy.lam, sy.sig, sy.d,
                                  diag_extra)
             with span("kkt.factor"):
                 fac, ok = kkt.factor(K)
-
-            rhs2 = pulled(rp + inv_ss * rs)
-            rhs = -(rx + m.jtprod(jvals, D * rhs2))
             with span("kkt.solve"):
                 # where the backend refines: on the aligned sharded
                 # backends the T-layout (each rank's own block slots plus
@@ -853,8 +852,8 @@ class IpmSolver:
                     # ir32 refines against the model's operator, which
                     # needs the replicated vector every round
                     dx, rr_final = refine_pcg(
-                        fac, rhs, kkt.solve(fac, rhs),
-                        torch.linalg.norm(rhs) + tiny, D, diag_extra)
+                        fac, rhs, kkt.solve(fac, rhs), sy.rhs_norm, D,
+                        diag_extra)
                     ref_ok = rr_final <= refine_accept
                 else:
                     # residual-driven iterative refinement of the CONDENSED
@@ -864,7 +863,7 @@ class IpmSolver:
                     # regularization ladder escalates (or the f32 step set
                     # demotes)
                     rhs_v = space.bring_in(rhs)
-                    rhs_norm = torch.linalg.norm(rhs) + tiny
+                    rhs_norm = sy.rhs_norm
                     dx = space.solve(rhs_v)
                     resid = space.sub(rhs_v, space.matvec(dx))
                     prev = torch.full((), inf, dtype=dt, device=dev)
@@ -888,13 +887,327 @@ class IpmSolver:
                     rr_final = space.norm(resid) / rhs_norm
                     ref_ok = rr_final <= refine_accept
                     dx = space.bring_out(dx)
-            dy = D * (m.jprod(jvals, dx) + rhs2)
-            ds = inv_ss * (dy - rs)
-            ok = ok & torch.isfinite(dx).all() & \
-                torch.isfinite(dy).all() & torch.isfinite(ds).all()
+            dy, ds, ok = segment("finish", self._seg_finish, sy.D, sy.inv_ss,
+                                 sy.rhs2, jvals, rs, dx, ok)
             # the factorization travels out of the regularization ladder so
             # the second-order correction can reuse it
             return dx, ds, dy, ok, ref_ok, rr_final, fac
+
+        dx = ds = dy = None         # the ladder's first try sets them
+        dw = dw_used = rr_f = zero
+        ok_f = dr.no
+        fac_f = None
+        tries = 0
+        # a precision failure of an f32 step set (factorization fine,
+        # refinement short of its acceptance) ends the ladder: the host
+        # hands the state to the f64 step set
+        need_demote = ladder_done = ok_f
+        while tries < o["max_reg_tries"] and not _read(ladder_done):
+            if tries == 0:
+                dw_new = dr.first_dw
+            else:
+                # each retry assembles again, and so re-runs the Hessian sweep
+                count("kkt.regularizations")
+                dw_new = torch.where(dw == 0.0, dr.bump_from_zero,
+                                     dw * dr.kw_plus)
+            dx, ds, dy, fac_ok, ref_ok, rr_f, fac_f = make_step(
+                dw_new, delta_c_floor)
+            ok_f = ladder_done = fac_ok & ref_ok
+            if can_demote:
+                need_demote = fac_ok & ~ref_ok
+                ladder_done = ok_f | need_demote
+            dw = dw_used = dw_new
+            tries += 1
+        if dx is None:
+            # no try at all (max_reg_tries = 0): a zero step
+            dx = torch.zeros(n, dtype=dt, device=dev)
+            ds = torch.zeros(m.ncon, dtype=dt, device=dev)
+            dy = torch.zeros(m.ncon, dtype=dt, device=dev)
+
+        # -- filter line search ------------------------------------------
+        phase("ipm.line_search")
+
+        def trial(xt, stt, alpha):
+            """The merit of the trial point (``xt``, ``stt``) after its two
+            sweeps, and the filter's verdict on it at step ``alpha``."""
+            return segment("trial", self._seg_trial, xt, stt, st.lz, st.uz,
+                           m.obj(xt, theta), m.cons(xt, theta), bar, alpha,
+                           dphi, dr.theta_c, dr.phi_c, ok_f)
+
+        # first trial at alpha_max with the uncorrected direction
+        with span("ipm.trial"):
+            lp = segment("trial_point", self._seg_trial_point, st.x, st.s,
+                         dr.dl, dr.du, dx, ds, dr.gphi_x, dr.gphi_s, tau)
+            alpha_max, dphi = lp.alpha, lp.dphi
+            t0 = trial(lp.xt, lp.stt, alpha_max)
+        # where the first trial fails, backtracking starts at half its step
+        alpha, accepted, f_type = t0.alpha_next, t0.acc, t0.ftype
+
+        if o["soc"]:
+            # -- second-order correction (Ipopt A-5.7..5.9 role): when the
+            # full step is rejected with theta not improving, solve the SAME
+            # factorized KKT once more with the post-step constraint
+            # violation as rhs and test the corrected step before falling
+            # back to backtracking
+            use_soc = dr.no
+            if _read(t0.need_soc):
+                count("ipm.soc_trials")
+                inv_ss_f = 1.0 / (dr.sigma[n:] + dw_used)
+                D_f = 1.0 / _damped(inv_ss_f + delta_c_floor, dr.damping)
+                stt = st.s + alpha_max * ds
+                ct = self._ceval(st.x + alpha_max * dx, consts)
+                rp_soc = alpha_max * rp + (ct - stt)
+                rhs2s = _pulled(rp_soc + inv_ss_f * rs, dr.damping)
+                rhs_s = -(rx + m.jtprod(jvals, D_f * rhs2s))
+                with span("kkt.solve"):
+                    dxs = kkt.solve(fac_f, rhs_s)
+                dys = D_f * (m.jprod(jvals, dxs) + rhs2s)
+                dss = inv_ss_f * (dys - rs)
+                good = (torch.isfinite(dxs).all()
+                        & torch.isfinite(dss).all()
+                        & torch.isfinite(dys).all())
+                # W-B tests the corrected point against the ORIGINAL
+                # step's alpha_max
+                with span("ipm.trial"):
+                    sp = segment("trial_point", self._seg_trial_point, st.x,
+                                 st.s, dr.dl, dr.du, dxs, dss, dr.gphi_x,
+                                 dr.gphi_s, tau)
+                    ts = trial(sp.xt, sp.stt, alpha_max)
+                # kappa_soc guard (W-B A-5.9): the correction must REDUCE
+                # infeasibility
+                use_soc = good & ts.acc & (ts.theta_t <= 0.99 * dr.theta_c)
+            if _read(use_soc):
+                dx, ds, dy = dxs, dss, dys
+                alpha, f_type = sp.alpha, ts.ftype
+            accepted = t0.acc | use_soc
+
+        ls_iters = 1
+        while ls_iters < o["max_backtracks"] and not _read(accepted):
+            with span("ipm.trial"):
+                tb = trial(st.x + alpha * dx, st.s + alpha * ds, alpha)
+            alpha, accepted, f_type = tb.alpha_next, tb.acc, tb.ftype
+            ls_iters += 1
+
+        phase("ipm.update")
+        return segment("update", self._seg_update, st, ev.track, bar, dr.dl,
+                       dr.du, dr.sig_l, dr.sig_u, dr.skip_zero, dx, ds, dy,
+                       dw_used, rr_f, need_demote, alpha, accepted, f_type,
+                       dr.theta_c, dr.phi_c, _i32(ls_iters, dev),
+                       can_demote=can_demote)
+
+    # ------------------------------------------------------------------
+    # the step's segments (see ``_step``): each takes the problem's
+    # constants first, then tensors, and returns tensors
+    # ------------------------------------------------------------------
+    def _seg_eval(self, c, st, fval_u, grad_u, cval_u, jvals_u):
+        """The bounds after the tiny-slack correction, the scaled
+        evaluations at ``st.x`` (from the sweeps' unscaled ones), the
+        convergence test and best-iterate tracker, and the barrier test at
+        the step's mu (the barrier loop's first pass)."""
+        m = self.model
+        o = self.opts
+        dt = m.dtype
+        has_l, has_u = c["has_l"], c["has_u"]
+        tol = c["tol"]
+        inf = float("inf")
+
+        # tiny-slack correction: if a bound distance has collapsed to the
+        # floating-point cancellation level (lifted equality slacks do this
+        # when c(x) sits outside the relaxation window), move the bound
+        # outward by eps^(3/4)*max(1,|b|) so Sigma stays representable
+        eps = torch.finfo(dt).eps
+        z_all = torch.cat([st.x, st.s])
+        maxl = torch.clamp(torch.abs(st.lz), min=1.0)
+        maxu = torch.clamp(torch.abs(st.uz), min=1.0)
+        lz = torch.where(has_l & (z_all - st.lz < 10 * eps * maxl),
+                         st.lz - eps ** 0.75 * maxl, st.lz)
+        uz = torch.where(has_u & (st.uz - z_all < 10 * eps * maxu),
+                         st.uz + eps ** 0.75 * maxu, st.uz)
+        st = st._replace(lz=lz, uz=uz)
+
+        fval = fval_u * m.sense * c["sf"]
+        grad = grad_u * m.sense * c["sf"]
+        cval = cval_u * c["sc"]
+        jvals = jvals_u * c["sc"][m.jac_rows]
+
+        # -- convergence -------------------------------------------------
+        zero = torch.zeros((), dtype=dt, device=st.x.device)
+        E0, inf_pr, inf_du, inf_comp, sd, sc_ = self._kkt_error(
+            st, c, grad, jvals, cval, zero)
+        converged = E0 <= tol
+        # Ipopt-style acceptable criteria: scaled overall error within
+        # acceptable_tol AND the component-wise guards
+        acc_now = ((E0 <= c["acceptable_tol"])
+                   & (inf_pr <= o["acceptable_constr_viol_tol"])
+                   & (inf_du / sd <= o["acceptable_dual_inf_tol"])
+                   & (inf_comp / sc_ <= o["acceptable_compl_inf_tol"]))
+        acceptable_count = torch.where(acc_now, st.acceptable_count + 1, 0)
+        acc_done = acceptable_count >= c["acceptable_iter"]
+        bad = ~torch.isfinite(E0)
+        diverged = (torch.abs(fval) > 1e20) | (_amax(torch.abs(st.x)) > 1e20)
+
+        # best-iterate tracker + near-optimal VISIT counter (degenerate-
+        # endgame limit-cycle escape): the visit/best metric is the KKT
+        # error with the W-B scalings CAPPED at s_max, so a degenerate
+        # multiplier ray cannot make a far-from-optimal point look
+        # stationary; at acceptable_visit_limit visits the solve returns
+        # "acceptable" with the best iterate restored (Ipopt:
+        # SOLVED_TO_ACCEPTABLE_LEVEL); the update keeps the best vectors
+        E_cap = torch.maximum(
+            torch.maximum(inf_du / torch.clamp(sd, max=o["s_max"]), inf_pr),
+            inf_comp / torch.clamp(sc_, max=o["s_max"]))
+        # objective sanity guard: a near-KKT candidate far above the best
+        # feasible-ish objective is a spurious stationary point and must
+        # not be stored/restored
+        feasish = inf_pr <= 1e2 * tol
+        feas_fobj = torch.where(feasish, torch.minimum(st.feas_fobj, fval),
+                                st.feas_fobj)
+        obj_bound = feas_fobj + o["restore_obj_guard"] * torch.clamp(
+            torch.abs(feas_fobj), min=1.0)
+        obj_ok = fval <= obj_bound
+        stale = torch.isfinite(st.best_fobj) & (st.best_fobj > obj_bound)
+        prev_best_E = torch.where(stale, inf, st.best_E)
+        visit = ((E_cap <= o["acceptable_visit_tol_factor"] * tol)
+                 & (inf_pr <= 1e2 * tol) & obj_ok)
+        acc_visits = st.acc_visits + visit.to(torch.int32)
+        better = (E_cap < prev_best_E) & obj_ok
+        best_E = torch.where(better, E_cap, prev_best_E)
+        best_fobj = torch.where(better, fval, st.best_fobj)
+        best_inf_pr = torch.where(better, inf_pr, st.best_inf_pr)
+        best_inf_du = torch.where(better, inf_du, st.best_inf_du)
+        cycle_stop = ((acc_visits >= o["acceptable_visit_limit"])
+                      & ~converged & torch.isfinite(best_E))
+
+        status = torch.where(
+            converged, FIRST_ORDER,
+            torch.where(bad, INVALID,
+                        torch.where(diverged, DIVERGED,
+                                    torch.where(acc_done | cycle_stop,
+                                                ACCEPTABLE, RUNNING))))
+
+        # adaptive mode: the next mu is the LOQO centrality rule
+        # sigma = 0.1*min(0.05*(1-xi)/xi, 2)^3 applied to the average
+        # complementarity, clipped into [monotone schedule, 0.8*mu]
+        mu_loqo = None
+        if o["barrier"] == "adaptive":
+            z0 = torch.cat([st.x, st.s])
+            cp = torch.cat([torch.where(has_l, (z0 - lz) * st.zl, 0.0),
+                            torch.where(has_u, (uz - z0) * st.zu, 0.0)])
+            cmask = torch.cat([has_l, has_u])
+            avg_c = torch.sum(torch.where(cmask, cp, 0.0)) / torch.clamp(
+                torch.sum(cmask), min=1)
+            min_c = _amin_inf(torch.where(cmask, cp, inf))
+            xi = min_c / torch.clamp(avg_c, min=torch.finfo(dt).tiny)
+            sig_c = 0.1 * torch.clamp(
+                0.05 * (1.0 - xi) / torch.clamp(xi, min=1e-12), max=2.0) ** 3
+            mu_loqo = sig_c * avg_c
+        return _Eval(
+            lz=lz, uz=uz, grad=grad, cval=cval, jvals=jvals, sd=sd,
+            go=self._barrier_test(st, c, grad, jvals, cval, st.mu),
+            mu_loqo=mu_loqo,
+            track=_Track(
+                status=status, acceptable_count=acceptable_count,
+                acc_visits=acc_visits, cycle_stop=cycle_stop, better=better,
+                best_E=best_E, best_fobj=best_fobj, best_inf_pr=best_inf_pr,
+                best_inf_du=best_inf_du, feas_fobj=feas_fobj, fval=fval,
+                inf_pr=inf_pr, inf_du=inf_du, E0=E0))
+
+    def _barrier_test(self, st, c, grad, jvals, cval, mu):
+        """Whether the barrier subproblem at ``mu`` is solved to
+        kappa_epsilon * mu while mu is above its floor: the barrier loop
+        goes on."""
+        o = self.opts
+        E_mu = self._kkt_error(st, c, grad, jvals, cval, mu)[0]
+        return ((E_mu <= o["kappa_epsilon"] * mu)
+                & (mu > c["tol"] * o["mu_min_fraction"]))
+
+    def _seg_barrier(self, c, st, grad, jvals, cval, bar, mu_loqo):
+        """One pass of the barrier loop: the next mu and tau, the filter
+        reset to its theta_max entry, and the barrier test at the new
+        mu."""
+        o = self.opts
+        inf = float("inf")
+        mu = bar.mu
+        mu_new = torch.maximum(
+            c["tol"] * o["mu_min_fraction"],
+            torch.minimum(o["kappa_mu"] * mu, mu ** o["theta_mu"]))
+        if o["barrier"] == "adaptive":
+            mu_new = torch.minimum(torch.maximum(mu_loqo, mu_new), 0.8 * mu)
+        ft_new = torch.full_like(bar.filter_theta, inf)
+        ft_new[0] = bar.filter_theta[0]
+        return _Barrier(
+            mu=mu_new, tau=torch.clamp(1.0 - mu_new, min=o["tau_min"]),
+            filter_theta=ft_new,
+            filter_phi=torch.full_like(bar.filter_phi, -inf),
+            filter_len=torch.ones((), dtype=torch.int32, device=mu.device),
+            go=self._barrier_test(st, c, grad, jvals, cval, mu_new))
+
+    def _seg_direction(self, c, st, track, sd, grad, cval, jvals, mu, *,
+                       ir_ref):
+        """What the regularization ladder and the line search take from
+        the iterate at ``mu``: the barrier-scaled quantities, the
+        residuals, the dual regularization floor and damping, ir32's
+        refinement targets (``ir_ref``), the ladder's start values, and the
+        current point's constraint violation, merit and merit gradient."""
+        m = self.model
+        o = self.opts
+        dt = m.dtype
+        dev = st.x.device
+        n = m.nvar
+        has_l, has_u = c["has_l"], c["has_u"]
+        tol = c["tol"]
+
+        # -- barrier-scaled quantities ------------------------------------
+        z = torch.cat([st.x, st.s])
+        dl = torch.where(has_l, z - st.lz, 1.0)
+        du = torch.where(has_u, st.uz - z, 1.0)
+        sig_l = torch.where(has_l, st.zl / dl, 0.0)
+        sig_u = torch.where(has_u, st.zu / du, 0.0)
+        sigma = sig_l + sig_u                       # (n+m,)
+        mu_dl = torch.where(has_l, mu / dl, 0.0)
+        mu_du = torch.where(has_u, mu / du, 0.0)
+
+        # bound-damping gradient contribution (one-sided bounds only)
+        kd = o["kappa_d"]
+        damp = kd * mu * ((has_l & ~has_u).to(dt) - (has_u & ~has_l).to(dt))
+        jty = m.jtprod(jvals, st.y)
+        rx = grad + jty - mu_dl[:n] + mu_du[:n] + damp[:n]
+        rs = -st.y - mu_dl[n:] + mu_du[n:] + damp[n:]
+        rp = cval - st.s
+
+        # mu-floored dual regularization: caps D = 1/(1/Sigma_s+dc) for the
+        # lifted equality rows, keeping the condensed system factorizable
+        delta_c_floor = o["delta_c_bar"] * \
+            torch.clamp(mu, min=o["delta_c_mu_floor"]) ** 0.25
+
+        # dual-ray proximal damping (the ray_* options): zero everywhere
+        # except inside a live ray signature; with its proximal pull on the
+        # capped excess of y.  Both are None when the option is off, and so
+        # is the mu-scaled dual-step damping (prox_dual_kappa), gated on mu
+        # so the global phase's basin is untouched: the default step runs
+        # none of their elementwise work
+        zero = torch.zeros((), dtype=dt, device=dev)
+        delta_prox = prox_pull = delta_pd = None
+        if o["ray_damping"]:
+            ray_live = ((_amax0(torch.abs(st.y)) > o["ray_y_cap"])
+                        & (track.inf_pr <= 1e2 * tol)
+                        & (track.inf_du / torch.clamp(sd, max=o["s_max"])
+                           > o["acceptable_visit_tol_factor"] * tol))
+            delta_prox = torch.where(ray_live, o["ray_delta"], zero)
+            prox_pull = delta_prox * (
+                st.y - torch.clamp(st.y, -o["ray_y_cap"], o["ray_y_cap"]))
+        if o["prox_dual_kappa"]:
+            delta_pd = torch.where(mu <= o["prox_dual_mu_max"],
+                                   o["prox_dual_kappa"] * mu, zero)
+
+        # ir32: the acceptance floored at f32 quality, the target down to
+        # refine_tol, both tightening with this iteration's mu
+        refine_accept = refine_tol = None
+        if ir_ref:
+            refine_accept = torch.clamp(o["refine_mu_factor_ir"] * mu,
+                                        o["refine_accept_f32"], 1e-2)
+            refine_tol = torch.clamp(0.05 * o["refine_mu_factor_ir"] * mu,
+                                     o["refine_tol"], o["refine_tol_cap_ir"])
 
         # sticky regularization: while the zero probe has a live failure
         # streak, start the ladder directly at the warm value it would have
@@ -904,161 +1217,135 @@ class IpmSolver:
         skip_zero = ((st.zero_fail_streak >= o["reg_zero_skip_streak"])
                      & (st.iter % o["reg_zero_reprobe"] != 0)
                      & (st.delta_w_last > 0.0))
-        first_dw = torch.where(skip_zero, warm_dw, 0.0)
-        bump_from_zero = torch.where(st.delta_w_last == 0.0,
-                                     o["delta_w_init"], warm_dw)
-        kw_plus = torch.where(st.delta_w_last == 0.0,
-                              o["kappa_w_plus_init"], o["kappa_w_plus"])
 
-        dx = torch.zeros(n, dtype=dt, device=dev)
-        ds = torch.zeros(mm, dtype=dt, device=dev)
-        dy = torch.zeros(mm, dtype=dt, device=dev)
-        dw = zero
-        dw_used = zero
-        rr_f = zero
-        ok_f = torch.zeros((), dtype=torch.bool, device=dev)
-        fac_f = None
-        tries = 0
-        # a precision failure of an f32 step set (factorization fine,
-        # refinement short of its acceptance) ends the ladder: the host
-        # hands the state to the f64 step set
-        need_demote = ladder_done = ok_f
-        while tries < o["max_reg_tries"] and not _read(ladder_done):
-            if tries == 0:
-                dw_new = first_dw
-            else:
-                # each retry assembles again, and so re-runs the Hessian sweep
-                count("kkt.regularizations")
-                dw_new = torch.where(dw == 0.0, bump_from_zero, dw * kw_plus)
-            dx, ds, dy, fac_ok, ref_ok, rr_f, fac_f = make_step(
-                dw_new, delta_c_floor)
-            ok_f = ladder_done = fac_ok & ref_ok
-            if can_demote:
-                need_demote = fac_ok & ~ref_ok
-                ladder_done = ok_f | need_demote
-            dw = dw_used = dw_new
-            tries += 1
+        # the line search's current point: violation, merit and gradient
+        gphi_x = grad - mu_dl[:n] + mu_du[:n] + damp[:n]
+        gphi_s = -mu_dl[n:] + mu_du[n:] + damp[n:]
+        return _Direction(
+            dl=dl, du=du, sig_l=sig_l, sig_u=sig_u, sigma=sigma, rx=rx,
+            rs=rs, rp=rp, delta_c_floor=delta_c_floor,
+            damping=_Damping(delta_prox, delta_pd, prox_pull),
+            refine_accept=refine_accept, refine_tol=refine_tol,
+            skip_zero=skip_zero,
+            first_dw=torch.where(skip_zero, warm_dw, 0.0),
+            bump_from_zero=torch.where(st.delta_w_last == 0.0,
+                                       o["delta_w_init"], warm_dw),
+            kw_plus=torch.where(st.delta_w_last == 0.0,
+                                o["kappa_w_plus_init"], o["kappa_w_plus"]),
+            zero=zero, no=torch.zeros((), dtype=torch.bool, device=dev),
+            theta_c=torch.sum(torch.abs(rp)),
+            phi_c=self._phi(st.x, st.s, track.fval, st.lz, st.uz, c, mu),
+            gphi_x=gphi_x, gphi_s=gphi_s)
+
+    def _seg_system(self, c, sigma, rx, rs, rp, jvals, y, damping, delta_w,
+                    delta_c):
+        """The condensed system at the regularization ``delta_w``: the
+        weights the assembly takes, folded into the model's scalings (its
+        values are for UNSCALED f and c; internal y multiplies scaled
+        c_i = sc_i*c_i; scaled J = sc*J), and the right-hand side with its
+        norm."""
+        m = self.model
+        n = m.nvar
+        sc = c["sc"]
+        inv_ss = 1.0 / (sigma[n:] + delta_w)
+        D = 1.0 / _damped(inv_ss + delta_c, damping)
+        rhs2 = _pulled(rp + inv_ss * rs, damping)
+        rhs = -(rx + m.jtprod(jvals, D * rhs2))
+        return _System(
+            inv_ss=inv_ss, D=D, diag_extra=sigma[:n] + delta_w, lam=y * sc,
+            sig=c["sf"] * m.sense, d=D * sc * sc, rhs2=rhs2, rhs=rhs,
+            rhs_norm=torch.linalg.norm(rhs) + torch.finfo(m.dtype).tiny)
+
+    def _seg_finish(self, c, D, inv_ss, rhs2, jvals, rs, dx, ok):
+        """The slack and multiplier steps from the solve's ``dx``, and
+        whether the whole step is finite (``ok``: the factorization's
+        verdict)."""
+        dy = D * (self.model.jprod(jvals, dx) + rhs2)
+        ds = inv_ss * (dy - rs)
+        ok = ok & torch.isfinite(dx).all() & \
+            torch.isfinite(dy).all() & torch.isfinite(ds).all()
+        return dy, ds, ok
+
+    def _seg_trial_point(self, c, x, s, dl, du, dx, ds, gphi_x, gphi_s,
+                         tau):
+        """The fraction-to-boundary step cap of the primal direction
+        (``dx``, ``ds``), the merit's directional derivative along it, and
+        the trial point at the cap."""
+        has_l, has_u = c["has_l"], c["has_u"]
+        inf = float("inf")
+        dza = torch.cat([dx, ds])
+        neg = dza < 0
+        pos = dza > 0
+        a_l = torch.where(has_l & neg,
+                          -tau * dl / torch.where(neg, dza, -1.0), inf)
+        a_u = torch.where(has_u & pos,
+                          tau * du / torch.where(pos, dza, 1.0), inf)
+        alpha = torch.clamp(torch.minimum(_amin_inf(a_l), _amin_inf(a_u)),
+                            max=1.0)
+        dphi = torch.dot(gphi_x, dx) + torch.dot(gphi_s, ds)
+        return _TrialPoint(alpha=alpha, dphi=dphi, xt=x + alpha * dx,
+                           stt=s + alpha * ds)
+
+    def _seg_trial(self, c, xt, stt, lz, uz, ft_u, ct_u, bar, alpha, dphi,
+                   theta_c, phi_c, ok):
+        """A trial point's violation and merit from its sweeps' unscaled
+        values, the filter's verdict on it at step ``alpha`` (the
+        Armijo-or-progress test against the filter of ``bar``), whether
+        the second-order correction is due (``ok``: the direction's
+        factorization was sound), and the step to try next if it fails."""
+        m = self.model
+        o = self.opts
+        ft = ft_u * m.sense * c["sf"]
+        ct = ct_u * c["sc"]
+        theta_t = torch.sum(torch.abs(ct - stt))
+        phi_t = self._phi(xt, stt, ft, lz, uz, c, bar.mu)
+        gt, gp = o["gamma_theta"], o["gamma_phi"]
+        finite = torch.isfinite(theta_t) & torch.isfinite(phi_t)
+        # filter entries are stored WITH their margins applied
+        # ((1-gt)*theta_k, phi_k - gp*theta_k), so the test is raw
+        active = torch.arange(FILTER_SIZE, device=xt.device) < bar.filter_len
+        dominated = active & (theta_t >= bar.filter_theta) & \
+            (phi_t >= bar.filter_phi)
+        in_filter = ~torch.any(dominated)
+        switching = (dphi < 0) & \
+            (alpha * (-dphi) ** o["s_phi"] >
+             o["delta"] * theta_c ** o["s_theta"])
+        armijo = phi_t <= phi_c + o["eta_phi"] * alpha * dphi
+        progress = (theta_t <= (1 - gt) * theta_c) | \
+            (phi_t <= phi_c - gp * theta_c)
+        acc = finite & in_filter & torch.where(switching, armijo, progress)
+        return _Trial(theta_t=theta_t, acc=acc, ftype=switching & armijo,
+                      need_soc=ok & (~acc) & (theta_t >= theta_c),
+                      alpha_next=torch.where(acc, alpha, alpha * 0.5))
+
+    def _seg_update(self, c, st, track, bar, dl, du, sig_l, sig_u, skip_zero,
+                    dx, ds, dy, dw_used, rr_f, need_demote, alpha, accepted,
+                    f_type, theta_c, phi_c, log_ls, *, can_demote):
+        """The new state: the dual directions and their fraction-to-
+        boundary step, the filter, the primal-dual update (or the
+        line-search failure's fallback), the small-step test, the status
+        and the best iterate (an f32 step set demotes where
+        ``can_demote``)."""
+        m = self.model
+        o = self.opts
+        dt = m.dtype
+        has_l, has_u = c["has_l"], c["has_u"]
+        eps = torch.finfo(dt).eps
+        inf = float("inf")
+        gt, gp = o["gamma_theta"], o["gamma_phi"]
+        mu, tau = bar.mu, bar.tau
+        filter_theta, filter_phi, filter_len = (bar.filter_theta,
+                                                bar.filter_phi,
+                                                bar.filter_len)
+        status = track.status
         if can_demote:
+            # the ladder's precision failure
             status = torch.where((status == RUNNING) & need_demote,
                                  DEMOTE_F32, status)
 
-        def ftb_primal(dza):
-            """Fraction-to-boundary step cap for a primal direction."""
-            neg = dza < 0
-            pos = dza > 0
-            a_l = torch.where(has_l & neg,
-                              -tau * dl / torch.where(neg, dza, -1.0), inf)
-            a_u = torch.where(has_u & pos,
-                              tau * du / torch.where(pos, dza, 1.0), inf)
-            return torch.clamp(torch.minimum(_amin_inf(a_l), _amin_inf(a_u)),
-                               max=1.0)
-
-        # -- filter line search ------------------------------------------
-        phase("ipm.line_search")
-        alpha_max = ftb_primal(torch.cat([dx, ds]))
-
-        theta_c = torch.sum(torch.abs(rp))
-        phi_c = self._phi(st.x, st.s, fval, lz, uz, consts, mu)
-        gphi_x = grad - mu_dl[:n] + mu_du[:n] + damp[:n]
-        gphi_s = -mu_dl[n:] + mu_du[n:] + damp[n:]
-        dphi = torch.dot(gphi_x, dx) + torch.dot(gphi_s, ds)
-
-        gt, gp = o["gamma_theta"], o["gamma_phi"]
-
-        def trial_at(dxa, dsa, alpha):
-            with span("ipm.trial"):
-                xt = st.x + alpha * dxa
-                stt = st.s + alpha * dsa
-                ft = self._feval(xt, consts)
-                ct = self._ceval(xt, consts)
-                theta_t = torch.sum(torch.abs(ct - stt))
-                phi_t = self._phi(xt, stt, ft, lz, uz, consts, mu)
-                return theta_t, phi_t
-
-        idx = torch.arange(FILTER_SIZE, device=dev)
-
-        def acceptable_to_filter(theta_t, phi_t):
-            # filter entries are stored WITH their margins applied
-            # ((1-gt)*theta_k, phi_k - gp*theta_k), so the test is raw
-            active = idx < filter_len
-            dominated = active & (theta_t >= filter_theta) & \
-                (phi_t >= filter_phi)
-            return ~torch.any(dominated)
-
-        def accept_test(alpha, theta_t, phi_t):
-            finite = torch.isfinite(theta_t) & torch.isfinite(phi_t)
-            in_filter = acceptable_to_filter(theta_t, phi_t)
-            switching = (dphi < 0) & \
-                (alpha * (-dphi) ** o["s_phi"] >
-                 o["delta"] * theta_c ** o["s_theta"])
-            armijo = phi_t <= phi_c + o["eta_phi"] * alpha * dphi
-            progress = (theta_t <= (1 - gt) * theta_c) | \
-                (phi_t <= phi_c - gp * theta_c)
-            acc = finite & in_filter & \
-                torch.where(switching, armijo, progress)
-            return acc, switching & armijo
-
-        # first trial at alpha_max with the uncorrected direction
-        theta_t0, phi_t0 = trial_at(dx, ds, alpha_max)
-        acc0, ftype0 = accept_test(alpha_max, theta_t0, phi_t0)
-
-        if o["soc"]:
-            # -- second-order correction (Ipopt A-5.7..5.9 role): when the
-            # full step is rejected with theta not improving, solve the SAME
-            # factorized KKT once more with the post-step constraint
-            # violation as rhs and test the corrected step before falling
-            # back to backtracking
-            inv_ss_f = 1.0 / (sigma_s + dw_used)
-            D_f = 1.0 / damped(inv_ss_f + delta_c_floor)
-            need_soc = ok_f & (~acc0) & (theta_t0 >= theta_c)
-            use_soc = torch.zeros((), dtype=torch.bool, device=dev)
-            if _read(need_soc):
-                count("ipm.soc_trials")
-                stt = st.s + alpha_max * ds
-                ct = self._ceval(st.x + alpha_max * dx, consts)
-                rp_soc = alpha_max * rp + (ct - stt)
-                rhs2s = pulled(rp_soc + inv_ss_f * rs)
-                rhs_s = -(rx + m.jtprod(jvals, D_f * rhs2s))
-                with span("kkt.solve"):
-                    dxs = kkt.solve(fac_f, rhs_s)
-                dys = D_f * (m.jprod(jvals, dxs) + rhs2s)
-                dss = inv_ss_f * (dys - rs)
-                good = (torch.isfinite(dxs).all()
-                        & torch.isfinite(dss).all()
-                        & torch.isfinite(dys).all())
-                a_soc = ftb_primal(torch.cat([dxs, dss]))
-                th_s, ph_s = trial_at(dxs, dss, a_soc)
-                # W-B tests the corrected point against the ORIGINAL
-                # step's alpha_max
-                acc_s, ftype_s = accept_test(alpha_max, th_s, ph_s)
-                # kappa_soc guard (W-B A-5.9): the correction must REDUCE
-                # infeasibility
-                use_soc = good & acc_s & (th_s <= 0.99 * theta_c)
-            if _read(use_soc):
-                dx, ds, dy = dxs, dss, dys
-                start_alpha = a_soc
-                theta_init, phi_init, ftype_init = th_s, ph_s, ftype_s
-            else:
-                start_alpha = torch.where(acc0, alpha_max, 0.5 * alpha_max)
-                theta_init, phi_init, ftype_init = theta_t0, phi_t0, ftype0
-            start_acc = acc0 | use_soc
-        else:
-            start_alpha = torch.where(acc0, alpha_max, 0.5 * alpha_max)
-            start_acc = acc0
-            theta_init, phi_init, ftype_init = theta_t0, phi_t0, ftype0
-
-        alpha, accepted, f_type = start_alpha, start_acc, ftype_init
-        ls_iters = 1
-        while ls_iters < o["max_backtracks"] and not _read(accepted):
-            theta_t, phi_t = trial_at(dx, ds, alpha)
-            acc, f_type = accept_test(alpha, theta_t, phi_t)
-            alpha = torch.where(acc, alpha, alpha * 0.5)
-            accepted = acc
-            ls_iters += 1
-
         # dual directions from complementarity linearization (for the
         # FINAL direction, post-SOC) + their fraction-to-boundary cap
-        phase("ipm.update")
+        z = torch.cat([st.x, st.s])
         dz = torch.cat([dx, ds])
         acl = torch.where(has_l, dl * st.zl - mu, 0.0)
         acu = torch.where(has_u, du * st.zu - mu, 0.0)
@@ -1074,6 +1361,7 @@ class IpmSolver:
                               max=1.0)
 
         # augment filter unless the accepted step was an f-type (Armijo) step
+        idx = torch.arange(FILTER_SIZE, device=z.device)
         add_to_filter = accepted & ~f_type
         slot = torch.clamp(filter_len, max=FILTER_SIZE - 1)
         at_slot = idx == slot
@@ -1106,7 +1394,7 @@ class IpmSolver:
         cap = o["y_reset_cap"]
         # reheat the barrier on failure
         mu = torch.where(failed,
-                         torch.clamp(torch.clamp(10.0 * inf_pr, min=mu),
+                         torch.clamp(torch.clamp(10.0 * track.inf_pr, min=mu),
                                      max=0.1), mu)
         tau = torch.where(failed,
                           torch.clamp(1.0 - mu, min=o["tau_min"]), tau)
@@ -1124,8 +1412,8 @@ class IpmSolver:
         filter_len = torch.where(failed, 1, filter_len)
         ls_fail_count = torch.where(failed, st.ls_fail_count + 1, 0)
         z_new = torch.cat([x_new, s_new])
-        dln = torch.where(has_l, z_new - lz, 1.0)
-        dun = torch.where(has_u, uz - z_new, 1.0)
+        dln = torch.where(has_l, z_new - st.lz, 1.0)
+        dun = torch.where(has_u, st.uz - z_new, 1.0)
         ks = o["kappa_sigma"]
         zl_new = torch.where(
             has_l, torch.clamp(zl_new, mu / (ks * dln), ks * mu / dln), 0.0)
@@ -1145,7 +1433,13 @@ class IpmSolver:
         stop = status != RUNNING
         # limit-cycle stop: hand back the BEST iterate seen, not wherever
         # in the overshoot cycle the visit counter happened to fire
-        restore = cycle_stop & (status == ACCEPTABLE)
+        restore = track.cycle_stop & (status == ACCEPTABLE)
+        better = track.better
+        best_x = torch.where(better, st.x, st.best_x)
+        best_s = torch.where(better, st.s, st.best_s)
+        best_y = torch.where(better, st.y, st.best_y)
+        best_zl = torch.where(better, st.zl, st.best_zl)
+        best_zu = torch.where(better, st.zu, st.best_zu)
 
         def keep(new, old):
             return torch.where(stop, old, new)
@@ -1162,7 +1456,7 @@ class IpmSolver:
             y=pick_b(best_y, keep(y_new, st.y)),
             zl=pick_b(best_zl, keep(zl_new, st.zl)),
             zu=pick_b(best_zu, keep(zu_new, st.zu)),
-            lz=lz, uz=uz,
+            lz=st.lz, uz=st.uz,
             mu=mu, tau=tau,
             delta_w_last=torch.where(dw_used > 0, dw_used, st.delta_w_last),
             # streak bookkeeping: only iterations that actually PROBED zero
@@ -1174,21 +1468,21 @@ class IpmSolver:
             filter_len=i32(filter_len),
             iter=i32(st.iter + torch.where(stop, 0, 1)),
             status=i32(status),
-            acceptable_count=i32(acceptable_count),
+            acceptable_count=i32(track.acceptable_count),
             small_step_count=i32(small_count),
             ls_fail_count=i32(ls_fail_count),
-            acc_visits=i32(acc_visits),
-            best_E=best_E, best_inf_pr=best_inf_pr,
-            best_inf_du=best_inf_du,
-            best_fobj=best_fobj, feas_fobj=feas_fobj,
+            acc_visits=i32(track.acc_visits),
+            best_E=track.best_E, best_inf_pr=track.best_inf_pr,
+            best_inf_du=track.best_inf_du,
+            best_fobj=track.best_fobj, feas_fobj=track.feas_fobj,
             best_x=best_x, best_s=best_s, best_y=best_y,
             best_zl=best_zl, best_zu=best_zu,
-            log_obj=fval,
-            log_inf_pr=pick_b(best_inf_pr, inf_pr),
-            log_inf_du=pick_b(best_inf_du, inf_du),
+            log_obj=track.fval,
+            log_inf_pr=pick_b(track.best_inf_pr, track.inf_pr),
+            log_inf_du=pick_b(track.best_inf_du, track.inf_du),
             log_alpha=alpha, log_alpha_z=alpha_z,
-            log_ls=_i32(ls_iters, dev),
-            log_delta_w=dw_used, log_rr=rr_f, log_E0=E0,
+            log_ls=log_ls,
+            log_delta_w=dw_used, log_rr=rr_f, log_E0=track.E0,
         )
 
     def _lsq_duals(self, st, consts):

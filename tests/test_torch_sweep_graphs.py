@@ -42,21 +42,33 @@ SWEEPS = ("obj", "cons", "obj_and_grad", "cons_and_jac", "kkt_vals",
 
 
 class ReplayOnCPU(cuda_graphs.CapturedCall):
-    """The capture's stand-in on the CPU: the outputs are the body's on the
-    static inputs, and a replay writes the body's new values into them."""
+    """The capture's stand-in on the CPU: what it records is one run of the
+    call on the static inputs (the body, then the packing of its outputs),
+    and a replay runs it again and writes the new values into the recorded
+    outputs, as a CUDA graph's replay does."""
 
-    def __init__(self, body, args, kwargs):
-        self.inputs = [a.detach().clone() for a in args]
-        self.outputs = body(*self.inputs, **kwargs)
-        outputs = _flat(self.outputs)
+    def _record(self, run):
+        packed = run()
+        outputs = self.outputs
 
         class Graph:
             def replay(_):
-                for out, new in zip(outputs, _flat(
-                        body(*self.inputs, **kwargs))):
+                fresh = run()
+                for out, new in zip(_leaves(outputs), _leaves(self.outputs)):
+                    if out is not None:
+                        out.copy_(new)
+                for out, new in zip(packed, fresh):
                     out.copy_(new)
+                self.outputs = outputs
 
         self.graph = Graph()
+        return packed
+
+
+def _leaves(tree):
+    out = []
+    cuda_graphs._flatten(tree, out)
+    return out
 
 
 def _flat(out):
