@@ -21,6 +21,7 @@ import gc
 import math
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -63,6 +64,9 @@ class System:
         self.solver_type = getattr(solvers, opts.pop("solver"))
         self.solver_options = opts
         self.model = self.backend = None
+        # the last ``build`` request's ``iter``, ``spans`` and ``counts``:
+        # plain numbers, so that no model outlives its request
+        self.last_build = None
 
     # -- set-up and requests -------------------------------------------
     def new_model(self):
@@ -124,10 +128,15 @@ class System:
                    solve_time=float(res.solve_time),
                    step_total=float(res.timers.get("step_total", np.nan)),
                    wall_s=time.perf_counter() - t0)
+        if kind == "build":
+            self.last_build = SimpleNamespace(
+                iter=rec["iter"], spans=dict(getattr(res, "spans", {})),
+                counts=dict(getattr(res, "counts", {})))
         return rec, answer
 
     def solver(self):
-        """The live solver of the kept model (``resolve`` cells)."""
+        """The live solver of the kept model (``resolve`` cells); ``None``
+        in a ``build`` cell, whose models end with their requests."""
         return None if self.backend is None else self.backend.solver
 
     def release(self):

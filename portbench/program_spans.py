@@ -4,8 +4,10 @@ request, read as per-step metrics.
 The port's solver returns, on each result, ``spans`` (``{path: {"calls",
 "s", "self_s"}}``, a path being the names of the open spans joined with
 ``/``) and ``counts`` (``{name: int}``).  The readers take the result of
-the window's last request (``run.system.solver().results``), which a
-traced run leaves untraced: its window runs on until it holds one.  "Per
+the window's last request (``run.system.solver().results``; in a
+``build`` cell, whose models end with their requests, the copy that
+``drive.System`` keeps of the last one), which a traced run leaves
+untraced: its window runs on until it holds one.  "Per
 step" is over that request's ``iter``, as ``ipm.step_ms`` has it.
 
 Every span at or under ``ipm.step`` falls in one share of the step by its
@@ -36,7 +38,8 @@ def last_result(run):
     """The result of the window's last request, or ``None`` where the
     program keeps no spans."""
     solver = run.system.solver()
-    res = getattr(solver, "results", None)
+    res = (run.system.last_build if solver is None
+           else getattr(solver, "results", None))
     if res is None or not getattr(res, "spans", None) or not res.iter:
         return None
     return res

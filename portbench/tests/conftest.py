@@ -23,28 +23,11 @@ TINY_LIMITS = {"opf-16000": {"primal_inf": 1e-6, "dual_inf": 1e-5}}
 OPF_SEED = 2 ** 31 + 901
 
 
-# A cell kept out of BENCHMARK.json (its runs spread more than the largest
-# bound can hold), whose files the tests still hold to the harness: it
-# reports what the other re-solve cell reports.
-DEFERRED = {"opf-16000.resolve": ("opf-16000", "resolve",
-                                  "quad-16000.resolve")}
-
-
-def _cell(workload, trace):
-    if workload not in DEFERRED:
-        return registry.cell(workload, trace=trace)
-    config, traffic, like = DEFERRED[workload]
-    return {"workload": {"name": workload, "config": config,
-                         "traffic": traffic, "chips": 1},
-            "config": registry.config(config), "mix": registry.mix(traffic),
-            "metrics": registry.cell(like, trace=trace)["metrics"]}
-
-
 def tiny_cell(workload, trace=False, size=None):
-    """The cell as ``BENCHMARK.json`` (or ``DEFERRED``) defines it, at a
-    size the CPU solves in seconds (quad at 20 supports, opf at 10
-    scenarios) or at ``size``."""
-    cell = copy.deepcopy(_cell(workload, trace))
+    """The cell as ``BENCHMARK.json`` defines it, at a size the CPU solves
+    in seconds (quad at 20 supports, opf at 10 scenarios) or at
+    ``size``."""
+    cell = copy.deepcopy(registry.cell(workload, trace=trace))
     name = cell["config"]["name"]
     n = size or SIZES[name]
     cell["config"]["kwargs"]["num_supports"] = n

@@ -14,7 +14,8 @@ SEED = OPF_SEED
 
 
 @pytest.mark.parametrize("workload", ["quad-16000.resolve",
-                                      "opf-16000.resolve"])
+                                      "opf-16000.resolve",
+                                      "quad-16000.build"])
 def test_the_float32_control_fails_and_the_program_passes(workload):
     cell = tiny_cell(workload)
     config = cell["config"]
@@ -41,6 +42,10 @@ def _run(workload, fault):
     ("quad-16000.resolve", "half_the_batch"),
     ("opf-16000.resolve", "half_the_batch"),
     ("quad-16000.resolve", "jacobian_scaled"),
+    ("quad-16000.build", "state_unchanged"),
+    ("quad-16000.build", "answer_altered"),
+    ("quad-16000.build", "half_the_batch"),
+    ("quad-16000.build", "jacobian_scaled"),
 ])
 def test_a_planted_fault_is_not_correct(workload, fault):
     result = _run(workload, fault)

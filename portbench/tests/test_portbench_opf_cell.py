@@ -23,7 +23,8 @@ SHARED = [
     "ad.graph_replay_share", "kkt.assemble_self_step_ms",
     "kkt.factor_step_ms", "kkt.solve_step_ms",
     "kkt.regularizations_per_solve", "k1_roofline",
-    "device.idle_pct.resolve"]
+    "device.idle_pct.resolve", "kkt.solve_graph_replay_share",
+    "ipm.graph_replay_share"]
 COUNTERS = {"kkt.refine_rounds_per_step": "kkt.refine_rounds",
             "ipm.soc_per_step": "ipm.soc_trials"}
 # 64 scenarios are the fewest that take the scenario KKT (65 blocks of 24
