@@ -100,10 +100,8 @@ class SimdModel:
                              else np.zeros(0, np.int64))
         self.jac_rows = torch.as_tensor(self.jac_rows_np, device=self.device)
         self.jac_cols = torch.as_tensor(self.jac_cols_np, device=self.device)
-        self._jprod_plan = SegmentSum(self.jac_rows_np, self.ncon,
-                                      self.device)
-        self._jtprod_plan = SegmentSum(self.jac_cols_np, self.nvar,
-                                       self.device)
+        self._jprod_plan = SegmentSum(self.jac_rows, self.ncon, self.device)
+        self._jtprod_plan = SegmentSum(self.jac_cols, self.nvar, self.device)
 
         # the streams every output is finished from (see _place), and the
         # deterministic scatter plans of the sums; a stream concatenates

@@ -8,7 +8,8 @@ variables -> block-diagonal + arrowhead border.  Both are instances of
     K = [ T    B ]      T: nb blocks of size bs (tridiagonal or diagonal)
         [ B^T  C ]      B: (nT, m) border, C: (m, m) dense corner
 
-The structure is recovered once at build time (numpy) and factorized with
+The structure is recovered once at build time, by torch on the model's
+device (the graph ordering alone by scipy on the host), and factorized with
 dense per-block operations on the card:
 
 - high-degree variables form the border (first-stage coupling),
@@ -46,6 +47,7 @@ import torch
 
 from ..ops.segsum import SegmentSum
 from ..utils.cuda_graphs import GraphCache
+from ..utils.timers import span
 from .chol_linv import chol_linv
 from .kkt import CondensedKKT, DenseKKT
 
@@ -248,183 +250,228 @@ class BlockTridiagKKT(CondensedKKT):
         # (:meth:`low_precision_view`), each view keeping to its own dtype's
         self._graphs = GraphCache(self.device, self.mesh, *KKT_COUNTERS)
         self._placements = {}
-        n = model.nvar
-        rows = model.hess_rows_np
-        cols = model.hess_cols_np
+        self._analyse(model, max_block, min_blocks, max_border, nb_round)
 
+    def _analyse(self, model, max_block, min_blocks, max_border, nb_round):
+        """The structure analysis: the border, the block layout (``mode``,
+        ``nb``, ``bs``, every T variable's padded ``slot``), the entry
+        classification and the device tables.  Torch ops on the model's
+        device, over the Hessian's COO pattern uploaded once; only the
+        graph ordering (connected components, reverse Cuthill-McKee) runs
+        on the host, by scipy, on the T-subgraph's canonical CSR copied
+        from the device.  Sets ``usable`` False where the structure does
+        not fit; the caller falls back."""
         import scipy.sparse as sp
         from scipy.sparse.csgraph import (reverse_cuthill_mckee,
                                           connected_components)
 
-        adj = sp.coo_matrix(
-            (np.ones(len(rows)), (rows, cols)), shape=(n, n)).tocsr()
-        adj.sum_duplicates()
-        deg = np.diff(adj.indptr)
+        dev = self.device
+        n = model.nvar
 
-        # border = unusually high-degree variables (first-stage coupling)
-        med = max(int(np.median(deg)), 1)
-        thresh = max(8 * med, 32)
-        border_mask = deg > thresh
-        if border_mask.sum() > max_border:
-            order = np.argsort(deg)[::-1]
-            border_mask = np.zeros(n, bool)
-            border_mask[order[:max_border]] = True
-        t_mask = ~border_mask
-        t_ids = np.nonzero(t_mask)[0]
-        b_ids = np.nonzero(border_mask)[0]
-        nT, mB = len(t_ids), len(b_ids)
-        self.n, self.nT, self.mB = n, nT, mB
-        if nT == 0:
-            self.usable = False
-            return
+        def arange(k):
+            return torch.arange(k, device=dev)
 
-        sub = adj[t_ids][:, t_ids]
-        ncomp, labels = connected_components(sub, directed=False)
-        comp_sizes = np.bincount(labels) if ncomp else np.zeros(0, int)
+        with span("kkt.analysis"):
+            rows = torch.as_tensor(model.hess_rows_np, device=dev)
+            cols = torch.as_tensor(model.hess_cols_np, device=dev)
+            # the pattern without duplicates, row-major, and the degrees
+            key = torch.unique(rows * n + cols)
+            ur, uc = key // n, key % n
+            deg = torch.bincount(ur, minlength=n)
+            border_mask = self._border(deg, max_border)
+            t_mask = ~border_mask
+            t_ids = torch.nonzero(t_mask)[:, 0]
+            b_ids = torch.nonzero(border_mask)[:, 0]
+            nT, mB = len(t_ids), len(b_ids)
+            self.n, self.nT, self.mB = n, nT, mB
+            if nT == 0:
+                self.usable = False
+                return
+            # the T-subgraph, numbered by rank in t_ids: its entries are the
+            # pattern's T x T entries, still row-major with no duplicates
+            tpos = torch.full((n,), -1, dtype=torch.int64, device=dev)
+            tpos[t_ids] = arange(nT)
+            tt = t_mask[ur] & t_mask[uc]
+            sr, sc = tpos[ur[tt]], tpos[uc[tt]]
+            indptr = torch.zeros(nT + 1, dtype=torch.int64, device=dev)
+            indptr[1:] = torch.cumsum(torch.bincount(sr, minlength=nT), 0)
 
-        # padded position of every T variable + block size
-        slot = np.full(n, -1, dtype=np.int64)
-        if ncomp >= min_blocks and comp_sizes.max() <= max_block:
-            # scenario mode: one block per component, padded to a common bs
-            bs = _round_up(int(comp_sizes.max()), 8)
-            nb = int(ncomp)
-            # position of each T variable inside its component, in
-            # variable order: rank within a stable sort by component
-            by_comp = np.argsort(labels, kind="stable")
-            first = np.concatenate([[0], np.cumsum(comp_sizes)[:-1]])
-            offsets = np.empty(nT, dtype=np.int64)
-            offsets[by_comp] = np.arange(nT) - first[labels[by_comp]]
-            slot[t_ids] = labels * bs + offsets
-            self.mode = "block_diag"
-        else:
-            # time mode: band ordering.  Two candidates, smaller bandwidth
-            # wins -- factor cost scales with bs^2 * nT:
-            # (a) reverse Cuthill-McKee on the T-subgraph (general), and
-            # (b) support-interleaved order (variables sorted by relative
-            #     position within their tensor, i.e. time-major across all
-            #     state/control/derivative tensors) -- on transcribed OCPs
-            #     this groups each support's variables together and often
-            #     beats the RCM heuristic by 2-3x.
-            tt = t_mask[rows] & t_mask[cols]
+        with span("kkt.order"):
+            sub = sp.csr_matrix(
+                (np.ones(len(sc)), sc.to(torch.int32).cpu().numpy(),
+                 indptr.to(torch.int32).cpu().numpy()), shape=(nT, nT))
+            ncomp, labels = connected_components(sub, directed=False)
+            comp_sizes = np.bincount(labels) if ncomp else np.zeros(0, int)
+            scenario = ncomp >= min_blocks and comp_sizes.max() <= max_block
+            if not scenario:
+                perm = reverse_cuthill_mckee(sub, symmetric_mode=True)
 
-            def band_of(order):
-                pos = np.full(n, -1, dtype=np.int64)
-                pos[order] = np.arange(len(order))
-                return pos, int(np.max(np.abs(pos[rows[tt]] - pos[cols[tt]]),
-                                       initial=0))
-
-            perm = reverse_cuthill_mckee(sub, symmetric_mode=True)
-            pos_rcm, bw_rcm = band_of(t_ids[perm])
-            pos_int = bw_int = None
-            variables = getattr(getattr(model, "core", None),
-                                "variables", None)
-            if variables:
-                frac = np.zeros(n)
-                vid = np.zeros(n, dtype=np.int64)
-                for v in variables:
-                    sl = slice(v.offset, v.offset + v.length)
-                    frac[sl] = np.arange(v.length) / max(v.length, 1)
-                    vid[sl] = v.vid
-                key = np.lexsort((vid[t_ids], frac[t_ids]))
-                pos_int, bw_int = band_of(t_ids[key])
-            # prefer RCM unless the interleave wins decisively: factor
-            # work scales with (bw+1)^2 so a 2/3 bandwidth cut is ~2x, but
-            # marginal wins are not worth trading away RCM's track record
-            # on numerically delicate (degenerate-endgame) problems
-            if bw_int is not None and bw_int < 0.66 * bw_rcm:
-                pos, bw = pos_int, bw_int
+        with span("kkt.analysis"):
+            # padded position of every T variable + block size
+            slot = torch.full((n,), -1, dtype=torch.int64, device=dev)
+            if scenario:
+                # scenario mode: one block per component, padded to a
+                # common bs
+                bs = _round_up(int(comp_sizes.max()), 8)
+                nb = int(ncomp)
+                # position of each T variable inside its component, in
+                # variable order: rank within a stable sort by component
+                labels = torch.as_tensor(labels, device=dev).long()
+                sizes = torch.as_tensor(comp_sizes, device=dev)
+                first = torch.cumsum(sizes, 0) - sizes
+                by_comp = torch.sort(labels, stable=True).indices
+                offsets = torch.empty(nT, dtype=torch.int64, device=dev)
+                offsets[by_comp] = arange(nT) - first[labels[by_comp]]
+                slot[t_ids] = labels * bs + offsets
+                self.mode = "block_diag"
             else:
-                pos, bw = pos_rcm, bw_rcm
-            bs = _round_up(max(bw, 1) + 1, 8)
-            nb = max((nT + bs - 1) // bs, 1)
-            if nb_round is not None:
-                # round the block count up for mesh segmentation (band
-                # partitioning); extra blocks are pure identity padding
-                nb = max(int(nb_round(nb)), nb)
-            slot[t_ids] = pos[t_ids]
-            self.mode = "band"
+                # time mode: band ordering.  Two candidates, smaller
+                # bandwidth wins -- factor cost scales with bs^2 * nT:
+                # (a) reverse Cuthill-McKee on the T-subgraph (general), and
+                # (b) support-interleaved order (variables sorted by
+                #     relative position within their tensor, i.e.
+                #     time-major across all state/control/derivative
+                #     tensors) -- on transcribed OCPs this groups each
+                #     support's variables together and often beats the RCM
+                #     heuristic by 2-3x.
+                def band_of(order):
+                    pos = torch.empty(nT, dtype=torch.int64, device=dev)
+                    pos[order] = arange(nT)
+                    d = (pos[sr] - pos[sc]).abs()
+                    return pos, int(d.max()) if len(d) else 0
 
-        self.bs, self.nb = bs, nb
-        self.usable = bs <= max_block and nb >= min_blocks
-        if not self.usable:
-            return
-        nTpad = nb * bs
-        self.nTpad = nTpad
+                pos_rcm, bw_rcm = band_of(
+                    torch.as_tensor(np.ascontiguousarray(perm),
+                                    device=dev).long())
+                pos_int = bw_int = None
+                variables = getattr(getattr(model, "core", None),
+                                    "variables", None)
+                if variables:
+                    frac = torch.zeros(n, dtype=torch.float64, device=dev)
+                    vid = torch.zeros(n, dtype=torch.int64, device=dev)
+                    for v in variables:
+                        sl = slice(v.offset, v.offset + v.length)
+                        frac[sl] = (torch.arange(v.length, dtype=torch.float64,
+                                                 device=dev)
+                                    / max(v.length, 1))
+                        vid[sl] = v.vid
+                    # sorted by frac, then vid, then variable (a lexsort)
+                    key = torch.sort(vid[t_ids], stable=True).indices
+                    key = key[torch.sort(frac[t_ids][key],
+                                         stable=True).indices]
+                    pos_int, bw_int = band_of(key)
+                # prefer RCM unless the interleave wins decisively: factor
+                # work scales with (bw+1)^2 so a 2/3 bandwidth cut is ~2x,
+                # but marginal wins are not worth trading away RCM's track
+                # record on numerically delicate (degenerate-endgame)
+                # problems
+                if bw_int is not None and bw_int < 0.66 * bw_rcm:
+                    pos, bw = pos_int, bw_int
+                else:
+                    pos, bw = pos_rcm, bw_rcm
+                bs = _round_up(max(bw, 1) + 1, 8)
+                nb = max((nT + bs - 1) // bs, 1)
+                if nb_round is not None:
+                    # round the block count up for mesh segmentation (band
+                    # partitioning); extra blocks are pure identity padding
+                    nb = max(int(nb_round(nb)), nb)
+                slot[t_ids] = pos
+                self.mode = "band"
 
-        # -- entry classification (static) -------------------------------
-        rr, cc = rows, cols
-        tt = t_mask[rr] & t_mask[cc]
-        pr, pc = slot[rr], slot[cc]
-        blk_r = np.where(pr >= 0, pr // bs, -9)
-        blk_c = np.where(pc >= 0, pc // bs, -9)
-        off_r, off_c = pr % bs, pc % bs
+            self.bs, self.nb = bs, nb
+            self.usable = bs <= max_block and nb >= min_blocks
+            if not self.usable:
+                return
+            nTpad = nb * bs
+            self.nTpad = nTpad
 
-        selD = np.nonzero(tt & (blk_r == blk_c))[0]
-        selL = np.nonzero(tt & (blk_r == blk_c + 1))[0]
-        if tt.any():
-            cross = tt & (np.abs(blk_r - blk_c) > 1)
-            if cross.any():
+            # -- entry classification (static) ---------------------------
+            tr, bc = t_mask[rows], border_mask[cols]
+            tt = tr & ~bc
+            pr, pc = slot[rows], slot[cols]
+            blk_r = torch.where(pr >= 0, pr // bs, -9)
+            blk_c = torch.where(pc >= 0, pc // bs, -9)
+            if bool((tt & ((blk_r - blk_c).abs() > 1)).any()):
                 # structure assumption violated; caller falls back
                 self.usable = False
                 return
-        selB = np.nonzero(t_mask[rr] & border_mask[cc])[0]
-        selC = np.nonzero(border_mask[rr] & border_mask[cc])[0]
-        self.block_diag = (self.mode == "block_diag") or len(selL) == 0
-
-        bpos = np.full(n, -1, dtype=np.int64)
-        bpos[b_ids] = np.arange(mB)
-
-        def as_t(a):
-            return torch.as_tensor(a, device=self.device)
+            selD = torch.nonzero(tt & (blk_r == blk_c))[:, 0]
+            selL = torch.nonzero(tt & (blk_r == blk_c + 1))[:, 0]
+            selB = torch.nonzero(tr & bc)[:, 0]
+            selC = torch.nonzero(~tr & bc)[:, 0]
+            self.block_diag = (self.mode == "block_diag") or len(selL) == 0
+            bpos = torch.full((n,), -1, dtype=torch.int64, device=dev)
+            bpos[b_ids] = arange(mB)
 
         # gather + segment-sum plans of the COO value stream, one per
         # target block array
         nnz_total = len(rows)
+        with span("kkt.plans"):
+            def plan(sel, dest, size):
+                return SegmentSum(dest, size, dev, sel=sel,
+                                  nnz_total=nnz_total)
 
-        def plan(sel, dest, size):
-            return SegmentSum(dest, size, self.device, sel=sel,
-                              nnz_total=nnz_total)
+            def blk_off(sel, blk):
+                return (blk[sel] * bs * bs + (pr[sel] % bs) * bs
+                        + pc[sel] % bs)
 
-        self.D_plan = plan(
-            selD, blk_r[selD] * bs * bs + off_r[selD] * bs + off_c[selD],
-            nb * bs * bs)
-        self.L_plan = plan(
-            selL, blk_c[selL] * bs * bs + off_r[selL] * bs + off_c[selL],
-            max(nb - 1, 1) * bs * bs)
-        self.B_plan = plan(selB, pr[selB] * mB + bpos[cc[selB]], nTpad * mB)
-        self.C_plan = plan(selC, bpos[rr[selC]] * mB + bpos[cc[selC]],
-                           mB * mB)
+            self.D_plan = plan(selD, blk_off(selD, blk_r), nb * bs * bs)
+            self.L_plan = plan(selL, blk_off(selL, blk_c),
+                               max(nb - 1, 1) * bs * bs)
+            self.B_plan = plan(selB, pr[selB] * mB + bpos[cols[selB]],
+                               nTpad * mB)
+            self.C_plan = plan(selC, bpos[rows[selC]] * mB + bpos[cols[selC]],
+                               mB * mB)
 
-        # scatter targets for diagonal additions + rhs permutation
-        self._slot_np = slot
-        self.t_ids_np, self.b_ids_np = t_ids, b_ids
-        self.b_ids = as_t(b_ids)
-        tslot = slot[t_ids]
-        # diagonal additions: sorted + unique flat destinations in D
-        dorder = np.argsort(tslot, kind="stable")
-        self.diag_take = as_t(t_ids[dorder])
-        self.diag_dest = as_t((tslot[dorder] // bs) * bs * bs
+        with span("kkt.analysis"):
+            # scatter targets for diagonal additions + rhs permutation
+            self._slot_np = slot.cpu().numpy()
+            self.t_ids_np = t_ids.cpu().numpy()
+            self.b_ids_np = b_ids.cpu().numpy()
+            self.b_ids = b_ids
+            tslot = slot[t_ids]
+            # diagonal additions: sorted + unique flat destinations in D
+            dorder = torch.sort(tslot, stable=True).indices
+            self.diag_take = t_ids[dorder]
+            self.diag_dest = ((tslot[dorder] // bs) * bs * bs
                               + (tslot[dorder] % bs) * (bs + 1))
-        # rhs/solution permutations as pure GATHERS (no scatter at all):
-        # slot_src[s] = source variable of padded slot s (self-index for
-        # pads, masked to 0), out_perm[i] = position of variable i in
-        # concat([x_T.flat (nTpad), x_B (mB)])
-        occupied = np.zeros(nTpad, bool)
-        occupied[tslot] = True
-        slot_src = np.zeros(nTpad, np.int64)
-        slot_src[tslot] = t_ids
-        self.slot_src = as_t(slot_src)
-        self.slot_mask = torch.as_tensor(
-            occupied.reshape(nb, bs), dtype=model.dtype, device=self.device)
-        out_perm = np.zeros(n, np.int64)
-        out_perm[t_ids] = tslot
-        out_perm[b_ids] = nTpad + np.arange(mB)
-        self.out_perm = as_t(out_perm)
-        # unit diagonal on padding slots so Cholesky stays well-posed
-        pad = (~occupied).astype(np.float64).reshape(nb, bs)
-        self.pad_eye = torch.as_tensor(
-            np.einsum("bi,ij->bij", pad, np.eye(bs)), dtype=model.dtype,
-            device=self.device)
+            # rhs/solution permutations as pure GATHERS (no scatter at
+            # all): slot_src[s] = source variable of padded slot s
+            # (self-index for pads, masked to 0), out_perm[i] = position of
+            # variable i in concat([x_T.flat (nTpad), x_B (mB)])
+            occupied = torch.zeros(nTpad, dtype=torch.bool, device=dev)
+            occupied[tslot] = True
+            slot_src = torch.zeros(nTpad, dtype=torch.int64, device=dev)
+            slot_src[tslot] = t_ids
+            self.slot_src = slot_src
+            self.slot_mask = occupied.reshape(nb, bs).to(model.dtype)
+            out_perm = torch.zeros(n, dtype=torch.int64, device=dev)
+            out_perm[t_ids] = tslot
+            out_perm[b_ids] = nTpad + arange(mB)
+            self.out_perm = out_perm
+            # unit diagonal on padding slots so Cholesky stays well-posed
+            self.pad_eye = torch.diag_embed(
+                (~occupied).reshape(nb, bs).to(model.dtype))
+
+    @staticmethod
+    def _border(deg, max_border):
+        """The border: variables of unusually high degree (first-stage
+        coupling), above ``max(8 * median, 32)``; past ``max_border`` of
+        them, the ``max_border`` of highest degree, cut where numpy's
+        ``argsort`` cuts (on the host: its order among equal degrees is
+        its own)."""
+        n = len(deg)
+        ds = torch.sort(deg).values
+        k = n // 2
+        # int(np.median(deg)): the mean of the middle two, truncated
+        med = int(ds[k]) if n % 2 else (int(ds[k - 1]) + int(ds[k])) // 2
+        border_mask = deg > max(8 * max(med, 1), 32)
+        if int(border_mask.sum()) > max_border:
+            order = np.argsort(deg.cpu().numpy())[::-1]
+            mask = np.zeros(n, bool)
+            mask[order[:max_border]] = True
+            border_mask = torch.as_tensor(mask, device=deg.device)
+        return border_mask
 
     def low_precision_view(self):
         """This backend assembling and factoring in f32: a shallow copy, so
@@ -632,8 +679,7 @@ def make_structured_kkt(model, fallback=True, **kwargs):
     the aligned :class:`~.scenario_shard.ShardedScenarioKKT`, a band
     problem it cannot align the :class:`~.band_shard.ShardedBandKKT`, and
     anything neither aligns their single-device fallback (every rank
-    factors the whole system).  Only the numpy structure analysis is
-    guarded: assembly, factoring and the kernel are never reached here,
+    factors the whole system).  Only the structure analysis is guarded: assembly, factoring and the kernel are never reached here,
     and their failures propagate to the caller."""
     mesh = kwargs.get("mesh") or getattr(model, "mesh", None)
     try:
