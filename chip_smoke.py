@@ -23,7 +23,9 @@ Phases (any failure raises and the script exits non-zero):
    blocks of 64, K1 launched 11 times per band factorization (counted),
    ``first_order`` at the CPU record's objective.  The warm re-solve records the blocks of its last band
    factorization (11 K1 calls, a late iteration) through a hook around
-   ``block_tridiag._chol_linv``;
+   ``block_tridiag._chol_linv``.  Every band solve of phases 4, 7, 9, 17
+   and 18 also launches K2 (``bcr_level``) twice a BCR level in every
+   factorization (counted; none in ``block_diag`` mode);
 5. determinism: quad-200 solved twice gives bit-identical iterates;
 6. K1 on the recorded quad-1000 blocks: backward errors within 10x of the
    plain version's, and the kernel, plain and library times per
@@ -127,7 +129,13 @@ Phases (any failure raises and the script exits non-zero):
     second and peak device memory above a baseline; K1 on the blocks of
     quad-16000's last band factorization (backward errors within 10x of
     the plain version's; kernel, plain, library and bound, the
-    ``escape34`` record of the kernels line); opf-2000 (capped at 150
+    ``escape34`` record of the kernels line); K2 on the inputs of that
+    factorization's 14 BCR levels, recorded through a hook around
+    ``bcr_level.bcr_level``: each level's backward error (its reduced
+    system against the level's Schur complement on a random vector) within
+    10x of the plain version's, and K2's, the plain version's and the byte
+    bound's ms over the 14 levels, in f64 and on the same inputs cast to
+    f32 (the ``bcr_level`` record of the kernels line); opf-2000 (capped at 150
     iterations), opf-4000 and opf-8000 as in phase 7; pandemic (100,128)
     cut at 50 iterations as (100,32) in phase 17 (band 7,040 x 16 with a
     border of 110, 14 K1 launches a factorization, every border factor
@@ -143,7 +151,8 @@ least pivot in (sqrt(n) u, 2 n u] D_jj; each solve's line carries its own
 goes on with K1's result and K1's launch count does not move; times and
 peak memory include the census's ``cholesky_ex``.
 
-The second-to-last line is the kernels' JSON record; the last line is
+The second-to-last line is the kernels' JSON record (K1's, then K2's); the
+last line is
 ``{"ok": true, "device": {...}}``.  The script exits non-zero and prints no
 result when CUDA is absent.
 """
@@ -158,6 +167,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import torch
 
@@ -393,6 +403,108 @@ def k1_main_path_record(blocks, chol_linv, chol_linv_reference, launches,
             "event_ms": {k: tot[k + "_event_ms"] for k in names}}
 
 
+def level_residual(L, Epad, D_even, D_next, E_next, y):
+    """A BCR level's backward error: its reduced system (``D_next`` odd
+    blocks first, ``E_next`` with its zero tail, as K2 writes them) applied
+    to ``y`` against the level's Schur complement applied to ``y`` through
+    triangular solves with ``L`` (in f64), relative to ``|D_even| |y|``:
+    an SPD band's Gram updates are bounded by its even blocks."""
+    f = torch.float64
+    L, Epad, D_even, D_next = (t.to(f) for t in (L, Epad, D_even, D_next))
+    m_odd, m_even = L.shape[0], D_even.shape[0]
+    E_odd, E_even = Epad[1::2], Epad[0::2][:m_odd]
+    ypad = torch.cat([y, y.new_zeros((1,) + y.shape[1:])])
+    u = E_even @ y[:m_odd] + E_odd.transpose(1, 2) @ ypad[1:m_odd + 1]
+    z = torch.linalg.solve_triangular(L, u, upper=False)
+    z = torch.linalg.solve_triangular(L.transpose(1, 2), z, upper=True)
+    Sy = D_even @ y
+    Sy[:m_odd] -= E_even.transpose(1, 2) @ z
+    Sy[1:] -= (E_odd @ z)[:m_even - 1]
+    half = m_even // 2
+    D_new = torch.empty_like(D_even)
+    D_new[1::2], D_new[0::2] = D_next[:half], D_next[half:]
+    Ty = D_new @ y
+    if E_next is not None:
+        E_new = E_next[:-1].to(f)
+        Ty[1:] += E_new @ y[:-1]
+        Ty[:-1] += E_new.transpose(1, 2) @ y[1:]
+    scale = float((D_even.abs() @ y.abs()).max())
+    return float((Ty - Sy).abs().max()) / scale
+
+
+def k2_level_record(L, Epad, D_even, reps):
+    """K2 and its plain version on one recorded level: each one's backward
+    error (:func:`level_residual`), device ms (``reps`` calls in a CUDA
+    graph) and the level's byte bound."""
+    from infiniteexamodels_jl_torch.solvers.bcr_level import (
+        bcr_level, bcr_level_reference, level_bytes)
+    from infiniteexamodels_jl_torch.tools.k1_sweep import graph_ms
+    m_odd, m_even, n = L.shape[0], D_even.shape[0], L.shape[-1]
+    half = m_even // 2
+    D_next = torch.empty_like(D_even)
+    E_next = None if m_even == 1 else torch.empty_like(D_even)
+
+    def kernel():
+        bcr_level(L, Epad, D_even, D_next, E_next)
+
+    def plain():
+        return bcr_level_reference(L, Epad[1::2], Epad[0::2][:m_odd],
+                                   D_even)
+
+    kernel()
+    D_ref, E_ref = plain()
+    P_next = torch.empty_like(D_even)
+    P_next[:half], P_next[half:] = D_ref[1::2], D_ref[0::2]
+    P_E = None
+    if E_next is not None:
+        P_E = torch.cat([E_ref, E_ref.new_zeros((1, n, n))])
+    g = torch.Generator(device="cuda").manual_seed(m_even)
+    y = torch.randn((m_even, n, 1), generator=g, device="cuda",
+                    dtype=torch.float64)
+    esize = torch.finfo(L.dtype).bits // 8
+    return {"m": Epad.shape[0], "dtype": str(L.dtype).replace("torch.", ""),
+            "backward": level_residual(L, Epad, D_even, D_next, E_next, y),
+            "backward_plain": level_residual(L, Epad, D_even, P_next, P_E,
+                                             y),
+            "ms": graph_ms(kernel, reps), "plain_ms": graph_ms(plain, reps),
+            "bound_ms": 1e3 * level_bytes(Epad.shape[0], n, esize)
+            / HBM_BYTES_PER_S}
+
+
+def k2_main_path_record(calls, launches, reps=5):
+    """K2's record of the kernels line: the inputs ``(L, Epad, D_even)`` of
+    every BCR level of one band factorization of the solve, each level's
+    backward error held within 10x of the plain version's (or of 8 n u),
+    and K2's, the plain version's and the byte bound's ms summed over the
+    levels; then the same on the inputs cast to f32."""
+    rec = {"name": "bcr_level", "route": "cuda",
+           "source": "infiniteexamodels_jl_torch/csrc/bcr_level.cu",
+           "replaces": None, "launches": launches, "levels": len(calls),
+           "shapes": [list(c[1].shape) for c in calls]}
+    for dtype in (torch.float64, torch.float32):
+        rows = []
+        for L, Epad, D_even in calls:
+            row = k2_level_record(*(t.to(dtype) for t in (L, Epad, D_even)),
+                                  reps)
+            n = L.shape[-1]
+            floor = 8 * n * torch.finfo(dtype).eps
+            assert row["backward"] <= max(10 * row["backward_plain"],
+                                          floor), row
+            print(json.dumps({"k2_level": row}))
+            rows.append(row)
+        tot = {k: sum(r[k] for r in rows)
+               for k in ("ms", "plain_ms", "bound_ms")}
+        part = {**tot, "bound_by": "bytes",
+                "max_backward": max(r["backward"] for r in rows),
+                "max_backward_plain": max(r["backward_plain"]
+                                          for r in rows)}
+        if dtype is torch.float64:
+            rec.update(part)
+        else:
+            rec["f32"] = part
+    return rec
+
+
 def rejections():
     """A tally of K1's calls on one dtype's blocks: the calls, their blocks,
     and the blocks K1 and its plain version reject (not SPD by their pivot
@@ -522,7 +634,7 @@ CENSUS = Census()
 
 
 def solve_recorded(backend, m, chol_linv, seen=None, keep=1, dtype=None,
-                   last_K=None, tally=None):
+                   last_K=None, tally=None, k2_seen=None, k2_keep=1):
     """One solve on the card, with K1's launches (its count set to 0 just
     before) and the band/scenario KKT's factorizations (a hook around
     ``BlockTridiagKKT.factor``) counted, and both counted again by dtype
@@ -531,11 +643,14 @@ def solve_recorded(backend, m, chol_linv, seen=None, keep=1, dtype=None,
     given) are kept; with ``last_K`` (a list), the last assembled K that
     was factored; with ``tally`` (``rejections()``), the blocks K1 and its
     plain version reject in every f32 call (the f64 calls' in
-    ``CENSUS.last``).  Returns (result, seconds,
+    ``CENSUS.last``); with ``k2_seen``, the inputs ``(L, Epad, D_even)``
+    of K2's last ``k2_keep`` calls.  Returns (result, seconds,
     launches, factorizations, {"k1": launches by dtype, "factor":
-    factorizations by dtype})."""
-    from infiniteexamodels_jl_torch.solvers import block_tridiag
+    factorizations by dtype, "k2": K2's launches, its count set to 0 just
+    before})."""
+    from infiniteexamodels_jl_torch.solvers import bcr_level, block_tridiag
     k1 = block_tridiag._chol_linv
+    k2 = bcr_level.bcr_level
     factor = block_tridiag.BlockTridiagKKT.factor
     factorizations = [0]
     by_dtype = {"k1": {}, "factor": {}}
@@ -562,11 +677,22 @@ def solve_recorded(backend, m, chol_linv, seen=None, keep=1, dtype=None,
             last_K[:] = [K]
         return factor(self, K)
 
+    def k2_recording(L, Epad, D_even, D_next, E_next):
+        k2_seen.append(tuple(t.detach().clone(
+            memory_format=torch.contiguous_format) for t in (L, Epad,
+                                                             D_even)))
+        del k2_seen[:-k2_keep]
+        return k2(L, Epad, D_even, D_next, E_next)
+
     block_tridiag._chol_linv = recording
     block_tridiag.BlockTridiagKKT.factor = counted
+    if k2_seen is not None:     # the factorization's name for the module
+        block_tridiag.bcr_level = types.SimpleNamespace(
+            bcr_level=k2_recording)
     CENSUS.solve = rejections()
     try:
         chol_linv.launches = 0
+        k2.launches = 0
         t0 = time.time()
         res = backend.optimize(m)
         torch.cuda.synchronize()
@@ -574,7 +700,9 @@ def solve_recorded(backend, m, chol_linv, seen=None, keep=1, dtype=None,
     finally:
         block_tridiag._chol_linv = k1
         block_tridiag.BlockTridiagKKT.factor = factor
+        block_tridiag.bcr_level = bcr_level
         CENSUS.last, CENSUS.solve = counts(CENSUS.solve), None
+    by_dtype["k2"] = k2.launches
     # every call launched the kernel (the tensors are on the card)
     assert sum(by_dtype["k1"].values()) == chol_linv.launches, (
         by_dtype, chol_linv.launches)
@@ -598,17 +726,20 @@ def segsum_record(model, kkt):
 
 
 def structured_solve(tag, m, record, shape, per, chol_linv, seen=None,
-                     keep=1, max_iter=None):
+                     keep=1, max_iter=None, k2_seen=None):
     """``m`` through the band or scenario KKT on the card: a first solve
     (K1's launches counted around it; peak device memory read over the
     build and it, above what was allocated before, after a
     ``gc.collect()``), then a warm re-solve (recording the blocks of its
     last ``keep`` K1 calls into ``seen`` when given).  Asserts the KKT's
     type and ``shape`` = (mode, nb, bs, mB) (a dense fallback would factor
-    an (n, n) matrix), ``per`` K1 launches in every factorization, and the
-    status and objective (within 1e-6 relative) of the JAX CPU ``record``
-    = (status, iterations, objective); prints one line and returns it.
-    ``max_iter`` caps both solves (the solver's default when None)."""
+    an (n, n) matrix), ``per`` K1 launches in every factorization and K2's
+    two a BCR level (``per - 1`` levels; none in ``block_diag`` mode), and
+    the status and objective (within 1e-6 relative) of the JAX CPU
+    ``record`` = (status, iterations, objective); prints one line and
+    returns it.  ``max_iter`` caps both solves (the solver's default when
+    None); ``k2_seen`` records the inputs of K2's calls in the warm
+    re-solve's last factorization."""
     from infiniteexamodels_jl_torch.backend import ExaTranscriptionBackend
     from infiniteexamodels_jl_torch.solvers import IpmSolver
     from infiniteexamodels_jl_torch.solvers.block_tridiag import (
@@ -628,7 +759,7 @@ def structured_solve(tag, m, record, shape, per, chol_linv, seen=None,
     torch.cuda.synchronize()
     build_s = time.time() - t0
     # the first solve builds the solver and its KKT (structure analysis)
-    res, first_s, launches, facts, _ = solve_recorded(backend, m, chol_linv)
+    res, first_s, launches, facts, by = solve_recorded(backend, m, chol_linv)
     census = CENSUS.last
     peak = torch.cuda.max_memory_allocated() - baseline
     kkt = backend.solver.kkt
@@ -637,11 +768,13 @@ def structured_solve(tag, m, record, shape, per, chol_linv, seen=None,
         tag, kkt.mode, kkt.nb, kkt.bs, kkt.mB)
     assert kkt.k1_launches_per_factorization() == per, tag
     assert facts > 0 and launches == per * facts, (tag, launches, facts)
+    assert by["k2"] == 2 * (per - 1) * facts, (tag, by["k2"], facts)
     assert res.status == status, (tag, res.status)
     rel = abs(res.objective - objective) / abs(objective)
     assert rel <= 1e-6, (tag, res.objective, rel)
     res2, warm_s, _, _, _ = solve_recorded(backend, m, chol_linv, seen,
-                                           keep=keep)
+                                           keep=keep, k2_seen=k2_seen,
+                                           k2_keep=per - 1)
     assert (res2.status, res2.iter) == (res.status, res.iter), (
         tag, res2.status, res2.iter)
     line = {"case": tag, "nvar": backend.model.nvar,
@@ -654,6 +787,7 @@ def structured_solve(tag, m, record, shape, per, chol_linv, seen=None,
             "warm_resolve_s": warm_s, "iters_per_s_warm": res.iter / warm_s,
             "k1_launches": launches, "factorizations": facts,
             "k1_launches_per_factorization": launches / facts,
+            "k2_launches": by["k2"],
             "blocks_rejected_f64": census,
             "memory_baseline_bytes": baseline,
             "peak_memory_above_baseline_bytes": peak,
@@ -1551,10 +1685,10 @@ def family_solve(tag, chol_linv):
     border = BorderCheck() if shape[3] else None
     if border is not None:
         with border:
-            res, first_s, launches, facts, _ = solve_recorded(
+            res, first_s, launches, facts, by = solve_recorded(
                 backend, m, chol_linv, seen, keep=per, last_K=last_K)
     else:
-        res, first_s, launches, facts, _ = solve_recorded(
+        res, first_s, launches, facts, by = solve_recorded(
             backend, m, chol_linv, seen, keep=per, last_K=last_K)
     census = CENSUS.last
     kkt = backend.solver.kkt
@@ -1562,8 +1696,10 @@ def family_solve(tag, chol_linv):
     assert (kkt.mode, kkt.nb, kkt.bs, kkt.mB) == shape, (
         tag, kkt.mode, kkt.nb, kkt.bs, kkt.mB)
     assert kkt.k1_launches_per_factorization() == per, tag
-    # every factorization of the solve launched K1 ``per`` times
+    # every factorization of the solve launched K1 ``per`` times, and K2
+    # twice a BCR level
     assert facts > 0 and launches == per * facts, (tag, launches, facts)
+    assert by["k2"] == 2 * (per - 1) * facts, (tag, by["k2"], facts)
     unmet = family_checks(tag, m, res)
     record = FAMILY_RECORDS.get(tag)
     warm_s = None
@@ -1585,6 +1721,7 @@ def family_solve(tag, chol_linv):
             "ms_per_iteration_first": 1e3 * first_s / max(res.iter, 1),
             "k1_launches": launches, "factorizations": facts,
             "k1_launches_per_factorization": launches / facts,
+            "k2_launches": by["k2"],
             "blocks_rejected_f64": census,
             "reference_bounds_printed_not_asserted": unmet}
     if border is not None:
@@ -1719,7 +1856,8 @@ def escape34_phase(chol_linv, chol_linv_reference):
     """Phase 18: quad-4000 and quad-16000 through the band KKT, K1 on
     quad-16000's recorded blocks, opf-2000, opf-4000 and opf-8000 through
     the scenario KKT, and pandemic (100,128) cut at 50 iterations; returns K1's
-    records on quad-16000's and (100,128)'s paths."""
+    records on quad-16000's and (100,128)'s paths, and K2's record (the
+    second of the kernels line) on quad-16000's."""
     from infiniteexamodels_jl_torch.models import opf, quad
     from infiniteexamodels_jl_torch.tools.k1_sweep import bcr_levels
     t_phase = time.time()
@@ -1728,14 +1866,21 @@ def escape34_phase(chol_linv, chol_linv_reference):
         tag = f"quad-{n}"
         status, iters, objective, nvar, ncon = ESCAPE34_RECORDS[tag]
         seen = [] if n == 16000 else None
+        k2_seen = [] if n == 16000 else None
         per = len(bcr_levels(nb))
         assert per == math.ceil(math.log2(nb)) + 1, (nb, per)
         line = structured_solve(tag, quad(num_supports=n),
                                 (status, iters, objective),
                                 ("band", nb, 64, 0), per, chol_linv, seen,
-                                keep=per)
+                                keep=per, k2_seen=k2_seen)
         assert (line["nvar"], line["ncon"]) == (nvar, ncon), line
     launches = line["k1_launches"]
+    # K2 on the inputs of the same factorization's 14 levels (each level's
+    # odd blocks are K1's launches but the root)
+    odd = [c[0].shape[0] for c in k2_seen]
+    assert odd == list(bcr_levels(11000)[:-1]), odd
+    k2_record = k2_main_path_record(k2_seen, line["k2_launches"])
+    del k2_seen
     # K1 on the blocks of quad-16000's last band factorization
     assert tuple(D.shape[0] for D in seen) == bcr_levels(11000), [
         D.shape for D in seen]
@@ -1758,7 +1903,7 @@ def escape34_phase(chol_linv, chol_linv_reference):
     record.update(family_phase(chol_linv, chol_linv_reference,
                                cases=("pandemic-100x128",)))
     print(json.dumps({"escape34_phase_s": time.time() - t_phase}))
-    return record
+    return record, k2_record
 
 
 def main():
@@ -1785,7 +1930,7 @@ def main():
 
     # 2. build every kernel of the port
     t0 = time.time()
-    logs = build_all(["chol_linv"])
+    logs = build_all(["chol_linv", "bcr_level"])
     for name, log in logs.items():
         print(f"--- nvcc {name}.cu ---\n{log.strip()}")
     build_s = time.time() - t0
@@ -1862,13 +2007,14 @@ def main():
 
     # 18. the reference's ESCAPE34 sweep points
     CENSUS.begin("18")
-    record["escape34"] = escape34_phase(chol_linv, chol_linv_reference)
+    record["escape34"], k2_record = escape34_phase(chol_linv,
+                                                   chol_linv_reference)
     CENSUS.report()
     record["blocks_rejected_f64"] = CENSUS.reports
 
     print(json.dumps({"elapsed_s": time.time() - t_start}))
     print(card_line())        # again here: the head of a long log is cut
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": [record, k2_record]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -37,8 +37,10 @@ import numpy as np
 import torch
 
 from ..ops.segsum import SegmentSum
+from ..utils.timers import count
+from .bcr_level import _lsolve
 from .block_tridiag import (BlockTridiagKKT, _apply_inv, _bcr_factor,
-                            _bcr_solve, _chol_linv, _lsolve)
+                            _bcr_solve, _chol_linv)
 from .scenario_shard import _AlignedKKT, _family_tables
 
 
@@ -227,6 +229,7 @@ class ShardedBandKKT(_AlignedKKT, BlockTridiagKKT):
             levels.append((Linv, E_odd, E_even))
             W1 = _lsolve(L, E_odd.transpose(-1, -2))
             W2 = _lsolve(L, E_even)
+            count("kkt.bcr_eager_levels")
             D_new = D[0::2].clone()
             # right-survivor updates -W1^T W1 and the new couplings between
             # survivors -W1^T W2; the last of each crosses the segment edge

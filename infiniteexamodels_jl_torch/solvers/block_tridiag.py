@@ -48,6 +48,7 @@ import torch
 from ..ops.segsum import SegmentSum
 from ..utils.cuda_graphs import GraphCache
 from ..utils.timers import span
+from . import bcr_level
 from .chol_linv import chol_linv
 from .kkt import CondensedKKT, DenseKKT
 
@@ -64,12 +65,6 @@ def _chol_linv(D):
     L^{-1} (K1, every dtype).  Applying D^{-1} is then two batched matmuls:
     D^{-1} b = L^{-T} (L^{-1} b)."""
     return chol_linv(D.contiguous())
-
-
-def _lsolve(L, X):
-    """W = L^{-1} X for the Gram-form factor updates: the backward-stable
-    batched triangular solve."""
-    return torch.linalg.solve_triangular(L, X, upper=False)
 
 
 def _apply_inv(Linv, b, out=None):
@@ -140,42 +135,42 @@ def _bcr_factor(D, E, place=None):
     phase then uses the stored explicit triangular inverses so every sweep
     is pure batched matmuls.
 
+    Each level is one K1 launch and its Schur update,
+    :func:`.bcr_level.bcr_level`: K2, two launches, on the card; the plain
+    version on the CPU.  It writes the next level's couplings into that
+    level's ``Epad`` buffer and its blocks odd ones first, so only level 0
+    concatenates and copies.
+
     Returns ``(levels, root, ok)``: per-level tuples
     ``(Linv, E_odd, E_even)`` plus the root block's ``Linv``.  Depth is
-    ceil(log2(nb)); every level is batched, and each level plus the root
-    is one K1 launch.  ``place`` (a :class:`_Placement`, or None for new
-    memory) says where the stored factors go."""
+    ceil(log2(nb)); every level is batched, and the root is one more K1
+    launch.  ``place`` (a :class:`_Placement`, or None for new memory) says
+    where the stored factors go."""
     levels = []
     ok = torch.ones((), dtype=torch.bool, device=D.device)
-    while D.shape[0] > 1:
-        m = D.shape[0]
-        m_odd, m_even = m // 2, (m + 1) // 2
-        L, Linv, okl = _chol_linv(D[1::2])
-        Linv = _keep(place, ("Linv", len(levels)), Linv)
+    shape = D.shape[1:]
+    zpad = torch.zeros((1,) + shape, dtype=D.dtype, device=D.device)
+    Epad = torch.cat([E, zpad], out=_out(place, ("Epad", 0),
+                                         (D.shape[0],) + shape, D))
+    # the level's odd blocks (K1's input) and even blocks
+    odd, even = D[1::2], D[0::2]
+    while odd.shape[0]:
+        m_odd, m_even = odd.shape[0], even.shape[0]
+        lvl = len(levels)
+        L, Linv, okl = _chol_linv(odd)
+        Linv = _keep(place, ("Linv", lvl), Linv)
         ok = ok & okl
-        zpad = torch.zeros((1,) + D.shape[1:], dtype=D.dtype, device=D.device)
-        Epad = torch.cat([E, zpad], out=_out(
-            place, ("Epad", len(levels)), (m,) + D.shape[1:], D))  # length m
-        E_odd = Epad[1::2]                          # (m_odd,) E[2k+1]
-        E_even = Epad[0::2][:m_odd]                 # (m_odd,) E[2k]
-        levels.append((Linv, E_odd, E_even))
-        # Gram factors: W1 = L^{-1} E_odd^T, W2 = L^{-1} E_even
-        W1 = _lsolve(L, E_odd.transpose(-1, -2))
-        W2 = _lsolve(L, E_even)
-        D_new = D[0::2].clone()
-        # left term  E[2k-1] D^{-1} E[2k-1]^T = W1^T W1 -> index k (k>=1)
-        Lc = torch.matmul(W1.transpose(-1, -2), W1)
-        D_new[1:] -= Lc[:m_even - 1]
-        # right term E[2k]^T D^{-1} E[2k] = W2^T W2    -> index k (k<m_odd)
-        Rc = torch.matmul(W2.transpose(-1, -2), W2)
-        D_new[:m_odd] -= Rc
-        # new coupling E'_k = -E[2k+1] D^{-1} E[2k] = -W1^T W2
+        levels.append((Linv, Epad[1::2], Epad[0::2][:m_odd]))
+        D_next = D.new_empty((m_even,) + shape)
+        E_next = None
         if m_even > 1:
-            E = -torch.matmul(W1.transpose(-1, -2), W2)[:m_even - 1]
-        else:
-            E = D.new_zeros((0,) + D.shape[1:])
-        D = D_new
-    _, root_linv, okr = _chol_linv(D)
+            E_next = _out(place, ("Epad", lvl + 1), (m_even,) + shape, D)
+            if E_next is None:
+                E_next = D.new_empty((m_even,) + shape)
+        bcr_level.bcr_level(L, Epad, even, D_next, E_next)
+        odd, even = D_next[:m_even // 2], D_next[m_even // 2:]
+        Epad = E_next
+    _, root_linv, okr = _chol_linv(even)
     return levels, _keep(place, "root_linv", root_linv), ok & okr
 
 

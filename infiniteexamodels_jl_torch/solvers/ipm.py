@@ -38,6 +38,7 @@ import torch
 
 from ..utils.cuda_graphs import GraphCache
 from ..utils.timers import Recorder, count, phases, span
+from .bcr_level import BCR_COUNTERS
 from .kkt import DenseKKT
 from .results import ExecutionStats
 
@@ -72,9 +73,10 @@ IPM_COUNTERS = ("ipm.graph_captures", "ipm.graph_replays",
                 "ipm.eager_segments")
 # counters every solve's result carries, at 0 where nothing happened: the
 # second-order corrections tried, the rounds of the condensed solve's
-# iterative refinement (each a solve and a matvec, or in ir32 a PCG step)
-# and the segments' graphs
-ZEROED_COUNTS = ("ipm.soc_trials", "kkt.refine_rounds") + IPM_COUNTERS
+# iterative refinement (each a solve and a matvec, or in ir32 a PCG step),
+# the segments' graphs and the BCR levels by route
+ZEROED_COUNTS = (("ipm.soc_trials", "kkt.refine_rounds") + IPM_COUNTERS
+                 + BCR_COUNTERS)
 # options that only the host loop reads: a change keeps the step's graphs
 HOST_OPTIONS = ("max_iter", "max_wall_time", "print_level")
 

@@ -80,8 +80,13 @@ def test_a_replayed_solve_equals_the_eager_one(case):
             assert torch.equal(second, kkt._eager_solve(fac, r2))
             assert torch.equal(first, kept)
             assert not torch.equal(first, second)
+    # a band factorization also counts its BCR levels, each through K2
+    levels = (0 if kkt.block_diag
+              else len(Ks) * (kkt.k1_launches_per_factorization() - 1))
     assert rec.counts == {"kkt.solve_graph_captures": 1,
-                          "kkt.solve_graph_replays": 3}
+                          "kkt.solve_graph_replays": 3,
+                          **({"kkt.bcr_fused_levels": levels} if levels
+                             else {})}
     kkt.factor(K)
     with pytest.raises(RuntimeError, match="stale factorization"):
         kkt.solve(fac, r1)
